@@ -1,6 +1,6 @@
-"""singlespmv_tpu — a TPU-native sparse linear-algebra framework.
+"""singlespmv_tpu — a sparse linear-algebra framework in JAX, run on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the reference
+A from-scratch JAX/XLA re-design with the capabilities of the reference
 single-node SpMV benchmark laboratory (hir0shim/singleSpMV): a swappable format zoo
 (COO, CSR, ELL, JDS, DIA, SS, CSS, CSR5-tiled + dense/XLA-sparse vendor baselines)
 behind a fixed (convert, spmv) op pair, a verified/calibrated/best-of-N benchmark

@@ -18,7 +18,7 @@ import numpy as np
 @dataclasses.dataclass(frozen=True)
 class Config:
     # --- format selection (reference: OPT_* defines, Makefile:12) ---
-    format: str = "csr"             # coo|csr|ell|jds|dia|ss|css|csr5|dense|bcoo
+    format: str = "csr"             # see formats.available_formats()
     variant: str = "optimized"      # simple|optimized (reference: SIMPLE|OPTIMIZED)
 
     # --- layout / tuning parameters (reference: param.h) ---
@@ -26,14 +26,13 @@ class Config:
     n_block: int = 1                # CSS column blocking factor (N_BLOCK)
     padding: bool = True            # pad streams/rows to hardware tiles (PADDING)
     index_bits: int = 32            # INDEX_32 / INDEX_64
-    omega: int = 128                # CSR5 tile lanes (ω); TPU lane count
+    # omega / row_block / lane_width follow an (8, 128) tiling; the XLA-level
+    # formats run with any values.  They are not yet re-tuned for the GPU.
+    omega: int = 128                # CSR5 tile lanes (ω)
     sigma: int = 16                 # CSR5 tile depth (σ); 0 = auto-tune from nnz/row
-    row_block: int = 8              # CSR row-block height (rows per tile)
-    lane_width: int = 128           # hardware lane width (TPU: 128)
-    bkt_cap_pct: float = 90.0       # bkt bucket-depth cap percentile (spill→ghosts)
-    bkt_group_cols: int = 0         # bkt col-blocks packed per group (0 = auto)
-    bkt_balance: bool = True        # bkt lane-preserving row balance permutation
-    bkt_row_group: int = 128        # bkt rows per bucket (128 | 1024 grouped mode)
+    row_block: int = 8              # BSR block height (rows per tile)
+    lane_width: int = 128           # stream/tile width: ELL/DIA row padding,
+    #                                 BSR block width, SS segment granularity
 
     auto_exclude: tuple = ()        # auto planner: formats to skip (driver
     #                                 retry path after a device OOM/crash)
@@ -41,7 +40,8 @@ class Config:
     #                                 B-column panel (0 = plan for SpMV).
     #                                 A dense panel amortizes the sparse
     #                                 index streams, flipping block-structured
-    #                                 matrices to the MXU formats (bsr/dense).
+    #                                 matrices to the matrix-product formats
+    #                                 (bsr/dense).
 
     # --- numerics ---
     dtype: str = "float32"          # value dtype on device: float32|float64|bfloat16

@@ -1,84 +1,103 @@
-"""Measured chip constants with a file-backed calibration loop.
+"""Measured device rates for the format planner, keyed by ``device_kind``.
 
-r1-r3 hand-fitted the planner cost-model constants as module literals
-(VERDICT r3 "what's weak" #7: microbench measures the same quantities but
-nothing recalibrates).  This module closes the loop: ``harness.calibrate``
-measures the rates on the attached chip and writes
-``results/chip_constants.json``; every cost model pulls its constants from
-here, falling back to the v5e literals when no calibration file exists.
+``harness.calibrate`` measures four rates with XLA-level probes on the attached
+device and stores them under that device's ``device_kind`` in
+``results/chip_constants.json``.  The planner (``formats.auto``, ``formats.hyb``)
+reads them through :func:`constants`, which calibrates first on a device that has
+no entry yet.  No device ever borrows another device's constants, and there are
+no built-in defaults.
 
-Override the file location with SPMV_CHIP_CONSTANTS=<path> (empty string
-disables loading — tests use the defaults deterministically).
+Keys:
+    hbm_bps       streamed bytes/s (large copy)
+    gather_rate   elements/s of ``x[col]`` with random int32 indices
+    scatter_rate  elements/s of a sorted ``segment_sum``
+    matmul_flops  float32 matrix-product flop/s at ``Precision.HIGHEST``
+
+Override the file location with SPMV_CHIP_CONSTANTS=<path>.  Tests call
+:func:`inject` to pin constants without measuring.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional
 
-# hand-measured TPU v5e literals (scripts/bench_slab.py, r2-r3) — the
-# fallback when no calibration has run
-DEFAULTS: Dict[str, float] = {
-    "hbm_bps": 700e9,          # streamed bytes/s achieved
-    "step_fixed_s": 0.35e-6,   # per-grid-step fixed cost (slab kernel family)
-    "base_slot_s": 0.015e-9,   # per-slot floor (gather+mul, m=1)
-    "sel_slot_s": 0.002e-9,    # per window member per slot (one-hot select)
-    "route_slot_s": 0.004e-9,  # per sigma-plane per slot (r4 refit v3)
-    "sel_entry_s": 0.0157e-9,  # one-hot select entry cost, any m > 1 (r4:
-    #   raefsky3 blk-k1 m=1 ran 0.044 ns/slot vs m=8 0.076 — the select
-    #   machinery costs ~0.016 to enter plus ~0.002/member)
-    "blk_route_s": 0.003e-9,   # blk mode, per kblk plane (r4 refit v3)
-    "blk_fixed_s": 0.006e-9,   # blk mode, per-slot fixed route overhead
-    #   (r4 v3 fit, STEP-FIXED-FREE rates — v2 double-counted the per-step
-    #    fixed cost inside the per-slot rates.  With sel = entry(m>1) +
-    #    m*member: route_blk = 0.006 + kblk*(0.003 + planes*0.0003),
-    #    route_unit = planes*0.004.  Reproduces the driver-grade kblk/T
-    #    grid on twotone/xenon2/lhr34/laminar/torso1 within ~2%)
-    "scatter_rate": 0.14e9,    # XLA gather/scatter elements/s
-    "lane_gather_rate": 5e9,   # fused CSS kernel stream elements/s
-    "mxu_flops": 40e12,        # effective f32 batched-matmul flops/s
-}
+KEYS = ("hbm_bps", "gather_rate", "scatter_rate", "matmul_flops")
 
-_cache: Dict[str, float] | None = None
+_injected: Optional[Dict[str, float]] = None
 
 
 def _path() -> str:
     env = os.environ.get("SPMV_CHIP_CONSTANTS")
-    if env is not None:
+    if env:
         return env
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     return os.path.join(root, "results", "chip_constants.json")
 
 
-def load() -> Dict[str, float]:
-    global _cache
-    if _cache is None:
-        vals = dict(DEFAULTS)
-        p = _path()
-        if p and os.path.exists(p):
-            try:
-                with open(p) as f:
-                    data = json.load(f)
-                for k, v in data.items():
-                    if k in vals and isinstance(v, (int, float)) and v > 0:
-                        vals[k] = float(v)
-            except (OSError, ValueError):
-                pass
-        _cache = vals
-    return _cache
+def device_kind() -> str:
+    import jax
+
+    return jax.devices()[0].device_kind
 
 
-def get(name: str) -> float:
-    return load()[name]
+def _valid(vals) -> bool:
+    return (isinstance(vals, dict) and all(
+        isinstance(vals.get(k), (int, float)) and vals[k] > 0 for k in KEYS))
 
 
-def save(values: Dict[str, float], path: str = None) -> str:
-    global _cache
+def _read_all(path: str) -> Dict[str, Dict[str, float]]:
+    if not os.path.exists(path):
+        return {}
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return data if isinstance(data, dict) else {}
+
+
+def load(kind: Optional[str] = None) -> Optional[Dict[str, float]]:
+    """Stored constants of ``kind`` (default: the attached device), or None."""
+    if _injected is not None:
+        return dict(_injected)
+    vals = _read_all(_path()).get(kind or device_kind())
+    return {k: float(vals[k]) for k in KEYS} if _valid(vals) else None
+
+
+def save(values: Dict[str, float], kind: Optional[str] = None,
+         path: Optional[str] = None) -> str:
+    """Store ``values`` under ``kind`` (default: the attached device)."""
+    if not _valid(values):
+        raise ValueError(f"chip constants need positive {KEYS}: {values}")
     p = path or _path()
-    os.makedirs(os.path.dirname(p), exist_ok=True)
-    known = {k: float(v) for k, v in values.items() if k in DEFAULTS}
+    data = _read_all(p)
+    data[kind or device_kind()] = {k: float(values[k]) for k in KEYS}
+    os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
     with open(p, "w") as f:
-        json.dump(known, f, indent=1, sort_keys=True)
-    _cache = None
+        json.dump(data, f, indent=1, sort_keys=True)
     return p
+
+
+def inject(values: Optional[Dict[str, float]]) -> None:
+    """Pin the constants every lookup returns (None restores file lookup)."""
+    global _injected
+    if values is not None and not _valid(values):
+        raise ValueError(f"chip constants need positive {KEYS}: {values}")
+    _injected = None if values is None else {k: float(values[k]) for k in KEYS}
+
+
+def constants(log: Optional[Callable[[str], None]] = None) -> Dict[str, float]:
+    """Constants of the attached device, calibrating it first if it has none."""
+    vals = load()
+    if vals is not None:
+        return vals
+    from ..harness.calibrate import measure
+
+    kind = device_kind()
+    if log:
+        log(f"chipconst: no calibration for {kind!r}; measuring")
+    vals = measure(log=log or (lambda m: None))
+    save(vals, kind)
+    return vals

@@ -4,8 +4,8 @@ On sandboxed kernels (gVisor-class: this machine) anonymous first-touch write
 faults cost ~1 ms/page (~5 MB/s), so ``np.empty``/``np.full``/``np.arange``/
 ``astype`` — which malloc then write — take *minutes* at GB scale, while the
 ``np.zeros`` (calloc) path maps pre-zeroed memory that writes at full speed
-(measured: 400 MB fill 38.6 s via empty+fill vs 0.05 s via zeros+fill;
-see PERFORMANCE.md "Host memory").  Every large allocation in convert paths
+(measured on such a host: 400 MB fill 38.6 s via empty+fill vs 0.05 s via
+zeros+fill).  Every large allocation in convert paths
 must go through these helpers.
 
 No reference analog — the reference's `_mm_malloc` arenas
@@ -66,3 +66,18 @@ def scatter2d(grid, rows, lanes, vals):
 
     if not native.grid_scatter(grid, rows, lanes, vals):
         grid[rows, lanes] = vals
+
+
+def unique(a: np.ndarray) -> np.ndarray:
+    """Sorted unique values of ``a`` (what plain ``np.unique`` returns).
+
+    Sort-based: the hash-based ``np.unique`` of newer NumPy releases runs
+    about 1 µs per element on tens of millions of distinct int64 keys, tens
+    of times slower than sorting them."""
+    a = np.sort(np.asarray(a).ravel())
+    if a.size == 0:
+        return a
+    keep = np.empty(a.size, dtype=bool)
+    keep[0] = True
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a[keep]

@@ -298,8 +298,8 @@ def radix_argsort(keys: np.ndarray) -> Optional[np.ndarray]:
 
     Returns the permutation (int64) or None when the native library is
     unavailable (callers fall back to np.argsort).  ~20-30x numpy's introsort
-    at 100 M keys on this 4-core host — the convert-time hotspot of the giant
-    suite matrices (VERDICT r2 item 3).
+    at 100 M keys on a 4-core host — the convert-time hotspot of the giant
+    suite matrices.
     """
     lib = get_sort_lib()
     if lib is None:

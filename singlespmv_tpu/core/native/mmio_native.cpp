@@ -1,6 +1,6 @@
 // Native Matrix-Market parser — the runtime's fast I/O path.
 //
-// TPU-native re-design of the reference's loaders (the minimal reader at
+// Re-design of the reference's loaders (the minimal reader at
 // /root/reference/src/util.cpp:30-66 and the full vendored mmio parser used by the
 // CSR5 drivers): one pass over a heap buffer with pointer-walking number parsing,
 // full banner semantics (pattern/integer/real/complex fields; general/symmetric/

@@ -11,7 +11,7 @@
  * reuse already-faulted memory and skip even the 4 KB fault cost.
  *
  * The reference avoids this class of cost with _mm_malloc arenas
- * (/root/reference/src/util.cpp:92-102); this is the TPU-host analog.
+ * (reference src/util.cpp:92-102); this is the host-side analog.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>

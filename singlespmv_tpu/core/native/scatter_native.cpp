@@ -1,9 +1,8 @@
 // Parallel grid scatter for convert layouts.
 //
-// The exchange/slab converts end with a series of fancy-index scatters
-// (lane[sr, li] = v over 10⁷-10⁸ entries); numpy runs them single-threaded
-// at ~10⁸/s, which is the residual host cost of giant converts after the
-// native radix sorts (r5 profile: ~12 s self-time on circuit5M).  Positions
+// Layout converts can end with fancy-index scatters (grid[r, c] = v over
+// 10⁷-10⁸ entries); numpy runs them single-threaded at ~10⁸/s, which is the
+// residual host cost of giant converts after the native radix sorts.  Positions
 // are unique by construction (each nnz owns one slot), so a plain parallel
 // loop is race-free.  C ABI for ctypes; original code, no reference analog
 // (the reference's converts are single-pass C++ loops over tiny arrays).

@@ -1,10 +1,9 @@
 // sort_native.cpp — parallel LSD radix argsort over uint64 keys.
 //
-// The slab/bkt/hyb converters sort the nnz stream several times per plan
-// ((scope, col) walks, (stream row, y row) run packing, row-major COO order).
-// numpy's introsort on 100 M int64 keys runs ~60-90 s single-core and was the
-// dominant OptimizeTime term on the giant suite matrices (VERDICT r2 item 3:
-// convert-time parity).  A stable LSD radix over only the occupied key bytes
+// Converters sort the nnz stream by 64-bit keys (row-major COO order, block
+// and diagonal keys).  numpy's introsort on 100 M int64 keys runs ~60-90 s
+// single-core and was the dominant OptimizeTime term on the giant suite
+// matrices.  A stable LSD radix over only the occupied key bytes
 // with OpenMP-parallel histogram + scatter passes runs the same sort in a few
 // seconds on 4 cores.
 //

@@ -4,10 +4,10 @@ Scalar COO SpMV in float64 on the host + the reference's abs-OR-rel ≤ tol chec
 (/root/reference/src/util.cpp:67-83: ``VerifyResult`` recomputes y from the COO
 triplets and passes an element iff ``|y-ref| <= tol`` or ``|y-ref|/|ref| <= tol``).
 
-The reference computes in f64 with tol=1e-6.  On TPU the value pipeline is f32 (f64 is
-emulated and not a sane production dtype there), so the tolerance is scaled by dtype:
-f64 keeps 1e-6; f32 uses a row-length-aware bound (summing k products of f32 inputs
-accumulates ~k·eps relative error in the worst case).
+The reference computes in f64 with tol=1e-6.  The device pipeline runs float64 or
+float32, so the tolerance is scaled by dtype: f64 keeps 1e-6; f32 uses a
+row-length-aware bound (summing k products of f32 inputs accumulates ~k·eps relative
+error in the worst case).
 """
 from __future__ import annotations
 
@@ -20,11 +20,16 @@ from .types import COOMatrix
 DEFAULT_TOL = 1e-6
 
 
+def _row_sums(coo: COOMatrix, terms: np.ndarray) -> np.ndarray:
+    """y[r] = Σ terms[i] over row[i] == r, in float64 (np.bincount)."""
+    return np.bincount(coo.row, weights=terms,
+                       minlength=coo.n_row).astype(np.float64)[: coo.n_row]
+
+
 def reference_spmv(coo: COOMatrix, x: np.ndarray) -> np.ndarray:
     """Float64 COO oracle: y[r] += val[i] * x[col[i]]."""
-    y = np.zeros(coo.n_row, dtype=np.float64)
-    np.add.at(y, coo.row, coo.val * np.asarray(x, dtype=np.float64)[coo.col])
-    return y
+    return _row_sums(coo, np.asarray(coo.val, dtype=np.float64)
+                     * np.asarray(x, dtype=np.float64)[coo.col])
 
 
 def tolerance_for(coo: COOMatrix, dtype) -> float:
@@ -32,10 +37,9 @@ def tolerance_for(coo: COOMatrix, dtype) -> float:
     if "float64" in name:
         return DEFAULT_TOL
     # Reduced precision: worst-case accumulation error grows with the longest
-    # row; bf16 has an 8-bit mantissa (eps = 2^-8).  Floor at the 128-lane
-    # vector width: the production kernels (slab, bkt stage B) reduce runs by
-    # prefix-sum differencing over a full 128-slot stream row, so their
-    # rounding scales with the stream row's content, not just the row's run.
+    # row; bf16 has an 8-bit mantissa (eps = 2^-8).  Floor at 128 terms: the
+    # scan formats (ss, css, csr5) add in tree order over whole stream tiles,
+    # so their rounding scales with the tile's content, not just the row's.
     max_row = int(coo.row_lengths().max(initial=1))
     eps = 2.0 ** -8 if "bfloat16" in name else float(np.finfo(np.float32).eps)
     return max(DEFAULT_TOL, 16.0 * eps * np.sqrt(max(max_row, 128.0)))
@@ -65,9 +69,8 @@ def verify_result(
     eps = (2.0 ** -8 if "bfloat16" in name
            else float(np.finfo(np.float32).eps)) \
         if "float64" not in name else float(np.finfo(np.float64).eps)
-    absref = np.zeros(coo.n_row, dtype=np.float64)
-    np.add.at(absref, coo.row,
-              np.abs(coo.val * np.asarray(x, dtype=np.float64)[coo.col]))
+    absref = _row_sums(coo, np.abs(np.asarray(coo.val, dtype=np.float64)
+                                   * np.asarray(x, dtype=np.float64)[coo.col]))
     bwd = 64.0 * eps * absref
     ok_elem = (abs_err <= tol) | (rel_err <= tol) | (abs_err <= bwd)
     ok = bool(ok_elem.all())

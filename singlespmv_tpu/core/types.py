@@ -1,6 +1,6 @@
 """Core sparse types.
 
-TPU-native re-design of the reference's core types (``/root/reference/src/util.h:7-39``:
+Re-design of the reference's core types (reference ``src/util.h:7-39``:
 ``SpMat{nRow,nCol,nNnz,row_idx,col_idx,val}``, ``Vec``, ``Element``).  Instead of C
 structs of raw aligned pointers we use immutable dataclasses of numpy arrays on the
 host side; format conversions produce JAX pytrees of device arrays with *static,

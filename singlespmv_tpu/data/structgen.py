@@ -22,6 +22,7 @@ from typing import Callable, Dict
 
 import numpy as np
 
+from ..core import hostmem as hm
 from ..core.types import COOMatrix
 
 
@@ -145,7 +146,7 @@ def _assemble(rng, n_row: int, n_col: int, nnz: int, parts) -> COOMatrix:
     topped up with non-colliding local scatter."""
     pos = np.concatenate(parts, axis=0)
     key = pos[:, 0] * n_col + pos[:, 1]
-    key = np.unique(key)
+    key = hm.unique(key)
     if key.size > nnz:
         is_diag = (key // n_col) == (key % n_col)
         diag_keys = key[is_diag]
@@ -162,7 +163,7 @@ def _assemble(rng, n_row: int, n_col: int, nnz: int, parts) -> COOMatrix:
         extra = _local_scatter(rng, min(n_row, n_col),
                                int(need * 1.3) + 16, width=n_col // 50 + 1)
         ek = extra[:, 0] * n_col + extra[:, 1]
-        key = np.unique(np.concatenate([key, ek]))
+        key = hm.unique(np.concatenate([key, ek]))
         tries += 1
     if key.size > nnz:
         key = np.sort(rng.permutation(key)[:nnz])

@@ -42,8 +42,8 @@ def spy_plot(coo: COOMatrix, size: int = 32) -> str:
 def structure_metrics(coo: COOMatrix) -> dict:
     """Structural profile used by the stand-in fidelity checks.
 
-    With zero egress (results/r3_standin_fidelity.md documents the DNS-denied
-    download attempts), real-vs-synth GFLOPS deltas cannot be measured — the
+    With zero egress (the real matrices cannot be downloaded), real-vs-synth
+    GFLOPS deltas cannot be measured — the
     honest substitute is validating that each stand-in exhibits the published
     structural *class* of its matrix (problem kind + spy-plot shape), which
     these metrics quantify:

@@ -13,16 +13,12 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import (auto, bcoo, bkt, bsr, coo, csr, csr5, css, dense, dia, ell,
-                   ellg, hostlib, hyb, jds, slab, ss, xch)
+    from . import (auto, bcoo, bsr, coo, csr, csr5, css, dense, dia, ell,
+                   hostlib, hyb, jds, ss)
     from .base import register_format
 
     register_format("auto", auto)
-    register_format("slab", slab)
-    register_format("xch", xch)
     register_format("hyb", hyb)
-    register_format("ellg", ellg)
-    register_format("bkt", bkt)
     register_format("bsr", bsr)
     register_format("coo", coo)
     register_format("csr", csr)

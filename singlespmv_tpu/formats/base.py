@@ -88,7 +88,7 @@ def spmv_fn(cfg: Config) -> Callable:
 
 
 def spmm_fn(cfg: Config) -> Callable:
-    """SpMM (dense-panel right-hand side).  Formats with a native MXU/scan path
+    """SpMM (dense-panel right-hand side).  Formats with a native matmul/scan path
     export ``spmm``; others fall back to vmapping spmv over the panel columns."""
     mod = get_format(cfg.format)
     native = getattr(mod, "spmm", None)

@@ -1,10 +1,10 @@
-"""BSR — block-sparse rows with dense (bm × bn) tiles: the MXU format.
+"""BSR — block-sparse rows with dense (bm × bn) tiles: the matrix-product format.
 
 No direct reference analog (the closest is CSR row-parallel,
-/root/reference/src/opt_crs.cpp:57-69) — this layout exists because TPUs pay for
-FLOPs with a 128×128 systolic array: nonzeros are gathered into dense bm×bn blocks
-so SpMV becomes a batched (bm×bn)·(bn) product and SpMM a batched matmul
-(``dot_general`` over the block batch → MXU), with a segment-sum over block rows.
+reference src/opt_crs.cpp:57-69).  Nonzeros are gathered into dense bm×bn
+blocks so SpMV becomes a batched (bm×bn)·(bn) product streamed without per-nonzero
+indices, and SpMM a batched matmul (``dot_general`` over the block batch), with a
+segment-sum over block rows.
 
 Blocks are stored sorted by (block_row, block_col); per-block data is dense with
 explicit zeros, so density of the blocking decides efficiency (report_fields exposes
@@ -47,13 +47,13 @@ def convert(coo: COOMatrix, cfg: Config) -> BSRState:
     n_blocks = max(len(uniq), 1)
     # Scattered inputs make one near-empty block per nonzero: the dense block
     # array then dwarfs the matrix (webbase-1M: 3M blocks = 12.6 GB) and the
-    # host->HBM transfer wedges the run.  Refuse; auto falls to ellg/bkt/csr.
+    # host->device transfer wedges the run.  Refuse; auto falls to csr.
     dense_elems = n_blocks * bm * bn
     if dense_elems > max(32 * coo.nnz, 1 << 22) or \
             dense_elems * np.dtype(cfg.np_dtype).itemsize > (2 << 30):
         raise ValueError(
             f"bsr: {n_blocks} blocks at fill {coo.nnz / dense_elems:.4f} — "
-            "block storage would dwarf the matrix; use ellg/bkt/csr")
+            "block storage would dwarf the matrix; use csr")
     blocks = np.zeros((n_blocks, bm, bn), dtype=cfg.np_dtype)
     if coo.nnz:
         lr = coo.row.astype(np.int64) % bm
@@ -66,9 +66,9 @@ def convert(coo: COOMatrix, cfg: Config) -> BSRState:
         bcol = np.zeros(1, dtype=cfg.index_dtype)
     fill = coo.nnz / float(n_blocks * bm * bn)
 
-    # Block-ELL SpMM layout (SURVEY §7.6 "x → (nCol, B) panel — MXU path"):
+    # Block-ELL SpMM layout (SURVEY §7.6 "x → (nCol, B) panel"):
     # per block-row, its K blocks concatenate along the contraction dim so
-    # Y = batched (bm, K·bn) @ (K·bn, B) — one MXU dot_general, no segment
+    # Y = batched (bm, K·bn) @ (K·bn, B) — one dot_general, no segment
     # sum, and the X gather is block-row-granular.  Built only when padding
     # to the max blocks/row stays bounded (FEM/band classes: K ≈ 2-4).
     ell_k, ell_blocks, ell_bcol = 0, None, None
@@ -104,8 +104,8 @@ def spmv(state: BSRState, x):
     n_col_pad = cdiv(state.n_col, state.bn) * state.bn
     xp = jnp.zeros((n_col_pad,), x.dtype).at[: state.n_col].set(x)
     xb = xp.reshape(-1, state.bn)[state.bcol]              # (n_blocks, bn)
-    # Broadcast-multiply + lane reduce: pure VPU streaming — measured ~20%
-    # faster than the batched-matvec einsum (MXU matvec wastes 127/128 cols).
+    # Broadcast-multiply + minor-axis reduce: an elementwise stream that
+    # stays exact in float32 (a batched matvec may run in TF32).
     part = (state.blocks * xb[:, None, :]).sum(-1)
     yb = jax.ops.segment_sum(part, state.brow, num_segments=state.n_brow,
                              indices_are_sorted=True)
@@ -116,7 +116,7 @@ MAX_GATHERED_ELEMS = 1 << 28    # cap on the materialized (n_blocks, bn, Bc) gat
 
 
 def spmm(state: BSRState, X):
-    """Y = A @ X with X (n_col, B): batched dense (bm×bn)@(bn×B) → MXU.
+    """Y = A @ X with X (n_col, B): batched dense (bm×bn)@(bn×B) products.
 
     The gathered X blocks materialize (n_blocks, bn, B) — for block-scattered
     matrices that explodes, so wide panels process in column chunks.
@@ -126,7 +126,7 @@ def spmm(state: BSRState, X):
 
     b = X.shape[1]
     if state.ell_k:
-        # block-ELL fast path: one batched MXU matmul, scatter-free
+        # block-ELL fast path: one batched matmul, scatter-free
         cb = cdiv(state.n_col, state.bn)
         Xp = jnp.zeros((cb * state.bn, b), X.dtype).at[: state.n_col].set(X)
         Xp = jnp.concatenate(       # block row cb = all-zero pad target

@@ -3,7 +3,7 @@
 The reference has no in-process checkpointing (runs are seconds long); its de
 facto resume unit is the sweep lockfile (SURVEY §5.3-5.4), and the expensive
 artifact worth persisting here is the OptimizeProblem output: format conversion
-(host-side sorts, bucket planning, level scheduling) can take minutes at
+(host-side sorts, diagonal peeling, level scheduling) can take minutes at
 10⁸-nnz scale while SpMV takes microseconds.  ``save_state``/``load_state``
 serialize any registered format state — nested states (hyb's dia + residual,
 auto's wrapper) included — as an .npz of array leaves + a JSON structure
@@ -37,7 +37,7 @@ def _encode(obj, arrays: Dict[str, np.ndarray], prefix: str):
         return out
     if hasattr(obj, "chosen") and hasattr(obj, "inner"):   # AutoState wrapper
         return {_SENTINEL: "singlespmv_tpu.formats.auto:AutoState",
-                "chosen": obj.chosen,
+                "chosen": obj.chosen, "failed": list(obj.failed),
                 "inner": _encode(obj.inner, arrays, f"{prefix}.inner")}
     if isinstance(obj, (jax.Array, np.ndarray)):
         key = prefix.lstrip(".")
@@ -62,7 +62,8 @@ def _decode(node, arrays):
         if node.get(_SENTINEL) == "singlespmv_tpu.formats.auto:AutoState":
             from .auto import AutoState
 
-            return AutoState(node["chosen"], _decode(node["inner"], arrays))
+            return AutoState(node["chosen"], _decode(node["inner"], arrays),
+                             tuple(node.get("failed", ())))
         if _SENTINEL in node:
             mod_name, qual = node[_SENTINEL].split(":")
             cls = getattr(importlib.import_module(mod_name), qual)
@@ -85,17 +86,15 @@ def fingerprint(coo, cfg: Config) -> dict:
     _CONVERT_FIELDS = (
         "format", "variant", "segment_width", "n_block", "padding",
         "index_bits", "omega", "sigma", "row_block", "lane_width",
-        "bkt_cap_pct", "bkt_group_cols", "bkt_balance", "bkt_row_group",
         "auto_exclude", "spmm_b", "dtype")
     cfg_d = json.loads(json.dumps(
         {k: v for k, v in dataclasses.asdict(cfg).items()
          if k in _CONVERT_FIELDS}))
     # per-format layout revision: a format module bumps STATE_REV when its
     # convert layout/planning changes, invalidating stale cached states.
-    # format=auto wraps ANY inner engine, so its rev must fold every
-    # registered engine's rev — otherwise an inner bump (r4: xch 3→4)
-    # leaves a cached auto state that chose that engine valid and a future
-    # layout-contract change silently reuses an incompatible state.
+    # format=auto wraps ANY inner format, so its rev must fold every
+    # candidate's rev — otherwise an inner bump leaves a cached auto state
+    # that chose that format valid and silently reuses an incompatible state.
     try:
         mod = importlib.import_module(f".{cfg.format}", __package__)
         rev = getattr(mod, "STATE_REV", 0)
@@ -107,8 +106,13 @@ def fingerprint(coo, cfg: Config) -> dict:
         rev = {"auto": rev}
         for name, m in sorted(_MODULES.items()):
             rev[name] = getattr(m, "STATE_REV", 0)
+    # the device kind: a state planned (and, for auto, timed) on one device
+    # is never reused on another
+    import jax
+
     return {"n_row": coo.n_row, "n_col": coo.n_col, "nnz": coo.nnz,
-            "digest": h.hexdigest(), "config": cfg_d, "rev": rev}
+            "digest": h.hexdigest(), "config": cfg_d, "rev": rev,
+            "device_kind": jax.devices()[0].device_kind}
 
 
 def save_state(path: str, state: Any, coo=None, cfg: Config = None) -> None:

@@ -1,10 +1,10 @@
 """COO format.
 
 Reference: /root/reference/src/opt_coo.cpp — zero-copy pass-through conversion and an
-nnz-parallel kernel with ``#pragma omp atomic`` scatter (:43).  TPUs have no atomics,
-so the TPU-native design is gather + *sorted* segment-sum: XLA lowers the scatter-add
-over row-sorted indices without any race machinery (functional semantics — the whole
-race class the atomic guards against does not exist here).
+nnz-parallel kernel with ``#pragma omp atomic`` scatter (:43).  Here it is gather +
+*sorted* segment-sum: XLA lowers the scatter-add over row-sorted indices itself
+(atomic adds on the GPU), with functional semantics — the race class the omp atomic
+guards against does not exist at this level.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from ..core.types import COOMatrix, round_up
 from ..ops.segsum import segment_sum_sorted
 from .base import device_put, pytree_dataclass
 
-PAD_MULTIPLE = 1024  # 8 sublanes × 128 lanes
+PAD_MULTIPLE = 1024  # stream padding granularity
 
 
 @pytree_dataclass(meta=("n_row", "n_col", "nnz", "nnz_pad"))

@@ -2,12 +2,11 @@
 
 Reference: /root/reference/src/opt_crs.cpp — COO→CSR row-pointer build (:10-42) and a
 row-parallel dot-product kernel (:57-69).  Row-parallel loops over jagged rows don't
-map to XLA's static shapes, so the TPU design keeps the CSR arrays (row_ptr/col/val)
-and computes with a row-id expansion + sorted segment-sum.  This is deliberately the
-*honest XLA baseline* (gather+segment-sum, ~0.14 G el/s on TPU — PERFORMANCE.md);
-the production paths are bsr/bkt/css via the `auto` planner.  The expansion is built
-once at convert time — conversion cost is part of OptimizeProblem in the reference
-too.
+map to XLA's static shapes, so this design keeps the CSR arrays (row_ptr/col/val)
+and computes with a row-id expansion: a gather of x[col] and a sorted segment-sum
+(atomic adds on the GPU).  It is the plain path: any structure, any dtype, and the
+format the `auto` planner falls back to.  The expansion is built once at convert
+time — conversion cost is part of OptimizeProblem in the reference too.
 """
 from __future__ import annotations
 

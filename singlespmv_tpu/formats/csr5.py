@@ -8,14 +8,14 @@ CSR5_avx2/detail/avx2/format_avx2.h:57-62), bit-packed per-lane descriptors, and
 csr5_spmv_avx2.h:7-45), normal-track in-register segmented scan (:47-267), and
 cross-tile calibration (:269-284).
 
-TPU-native re-design:
-- ω = 128 (the TPU lane width), σ auto-tuned from nnz/row when cfg.sigma == 0
+XLA-level re-design:
+- ω = cfg.omega (128 by default), σ auto-tuned from nnz/row when cfg.sigma == 0
   (the spirit of the CUDA backend's r/s/t/u rule, anonymouslib_cuda.h:296-312);
 - tiles are **partitioned at convert time** into a fast track (single-row tiles →
-  dense (Tf, ωσ) row-sum, pure VPU reduction, no scan) and a normal track (segmented
+  dense (Tf, ωσ) row-sum, a plain reduction, no scan) and a normal track (segmented
   scan + run-end extraction, shared with formats.ss);
-- bit-packed descriptors become plain int32 arrays (end_pos / rank_rows) — XLA/Pallas
-  prefer vectors over bitfields; the empty-row descriptor_offset machinery is
+- bit-packed descriptors become plain int32 arrays (end_pos / rank_rows) — XLA prefers
+  vectors over bitfields; the empty-row descriptor_offset machinery is
   subsumed by ghost-row ids dropped in the combine;
 - the calibration kernel (cross-tile partial rows) becomes the final sorted
   segment-sum over per-run partials.
@@ -167,15 +167,7 @@ def spmv(state: CSR5State, x):
     )[: state.n_row]
     # Normal track: segmented scan + run-end extraction + calibration-combine.
     prod = state.val * x[state.col]
-    from ..ops import pallas as pallas_pkg
-
-    if (state.variant == "optimized" and state.n_normal
-            and pallas_pkg.supports(prod.dtype)):
-        from ..ops.pallas.segscan import segmented_scan_tiles
-
-        scanned = segmented_scan_tiles(prod, state.heads)
-    else:
-        scanned = segmented_scan_inclusive(prod, state.heads)
+    scanned = segmented_scan_inclusive(prod, state.heads)
     partials = extract_run_partials(scanned, state.end_pos)
     y = y + combine_partials(partials, state.rank_rows, state.n_row)
     return y

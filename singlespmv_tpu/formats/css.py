@@ -1,59 +1,40 @@
-"""CSS — cache(-VMEM)-blocked segmented-scan format.
+"""CSS — column-blocked segmented-scan format.
 
 Reference: /root/reference/src/opt_css.cpp — columns split into N_BLOCK blocks so the
 gathered x window stays cache-resident (:33-45); per-block SS structures with
 per-block log-trees, y accumulated across blocks (:198-303).
 
-TPU-native design — the flagship irregular-matrix path:
+Design: the nnz stream is ordered by (column block, row, col) and computed by the
+SS engine (formats.ss), so each stretch of the stream gathers from one window of
+x.  The reference's per-block tree + cross-block y accumulation collapse into
+SS's final segment-sum, which also sums a row's per-block partials.
 
-- "optimized" variant: the stream is ordered by (col // 128, row, col) with each
-  128-column block's sub-stream padded to a whole number of W-wide stream rows, so
-  every stream row reads ONE 128-lane row of the x table.  SpMV then runs the fused
-  Pallas kernel (ops.pallas.blockgather): lane-wise VMEM gather (~80× faster than
-  XLA's general gather on TPU) + multiply + in-register segmented scan, followed by
-  the shared run-end extraction / combine (formats.ss.reduce).  The reference's
-  per-block tree + cross-block y accumulation collapse into the final segment-sum,
-  which also sums a row's per-block partials.
-- "simple" variant: same reordered stream with cfg.n_block-wide blocks (the
-  reference's sweepable N_BLOCK), computed via the XLA SS engines — the x-locality
-  ordering still helps caches on CPU backends.
+- "optimized" variant: ``cfg.lane_width``-wide column blocks (many small x
+  windows);
+- "simple" variant: ``cfg.n_block`` column blocks (the reference's sweepable
+  N_BLOCK).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import Config
-from ..core.types import COOMatrix, cdiv, round_up
+from ..core.types import COOMatrix, cdiv
 from . import ss
-from .base import device_put, pytree_dataclass
-
-LANES = 128
+from .base import pytree_dataclass
 
 
 @pytree_dataclass(meta=("n_row", "n_col", "nnz", "w", "h", "r_max", "variant",
                         "n_step", "step_counts", "sorted_combine",
-                        "n_block", "block_cols", "n_xrow", "maxk_c"))
+                        "n_block", "block_cols"))
 class CSSState(ss.SSState):
     n_block: int = 1
     block_cols: int = 0
-    n_xrow: int = 1       # rows of the (B, 128) x table
-    block_ids: object = None  # (H,) int32 — x-table row per stream row (optimized)
-    val_hi: object = None  # df64 path: (H, W) f32 hi plane (dtype=float64 +
-    val_lo: object = None  # optimized — real f64 semantics on f32 hardware)
-    maxk_c: int = 0        # df64: longest per-row partial chain (tree depth)
-    pos_c: object = None   # df64: (P,) int32 flat run-end positions into the
-    #                        (H·W) stream, SORTED by destination row
-    rows_c: object = None  # (P,) int32 global rows (sorted; back-compat)
-    heads_c: object = None  # (P,) int32 — 1 at each row-segment head
-    end_idx: object = None  # (E,) int32 — last partial of each row segment
-    end_rows: object = None  # (E,) int32 — that segment's global row
 
 
 def convert(coo: COOMatrix, cfg: Config) -> CSSState:
-    w = max(cfg.lane_width, round_up(cfg.segment_width, cfg.lane_width))
-    optimized = cfg.variant == "optimized"
-    if optimized:
-        block_cols = LANES
+    if cfg.variant == "optimized":
+        block_cols = cfg.lane_width
         n_block = cdiv(max(coo.n_col, 1), block_cols)
     else:
         n_block = max(1, cfg.n_block)
@@ -61,199 +42,17 @@ def convert(coo: COOMatrix, cfg: Config) -> CSSState:
 
     blk = coo.col // block_cols
     order = np.lexsort((coo.col, coo.row, blk))
-    rows, cols, vals = coo.row[order], coo.col[order], coo.val[order]
-
-    if optimized:
-        # Pad each 128-column block's sub-stream to a multiple of 8·W so every
-        # kernel tile (8 stream rows) lives in ONE block (pads: ghost row,
-        # col = block base, val = 0).  W adapts downward when blocks are small —
-        # a fixed large W would pad every tiny block to 8·W (catastrophic for
-        # wide matrices: 65k blocks × 16k slots was a 80× blow-up).
-        sblk = blk[order]
-        present, counts = (np.unique(sblk, return_counts=True)
-                           if coo.nnz else (np.zeros(1, np.int64),
-                                            np.zeros(1, np.int64)))
-        avg_blk = coo.nnz / max(len(present), 1)
-        w = min(w, max(LANES, round_up(int(avg_blk / 8) + 1, LANES)))
-        tile_elems = 8 * w
-        padded = np.maximum(tile_elems,
-                            (np.ceil(counts / tile_elems) * tile_elems)
-                            .astype(np.int64))
-        total = int(padded.sum())
-        if total > 8 * max(coo.nnz, 1) + (1 << 16):
-            raise ValueError(
-                f"css: block padding {total} slots vs nnz {coo.nnz} — too many "
-                "near-empty column blocks; use bkt/bsr")
-        prow = np.full(total, coo.n_row, dtype=np.int64)
-        pcol = np.zeros(total, dtype=coo.col.dtype)
-        pval = np.zeros(total, dtype=np.float64)
-        out_start = np.zeros(len(present), dtype=np.int64)
-        np.cumsum(padded[:-1], out=out_start[1:])
-        in_start = np.zeros(len(present), dtype=np.int64)
-        np.cumsum(counts[:-1], out=in_start[1:])
-        # vectorized fill: entry i of block b lands at out_start[b] + rank
-        binv = np.searchsorted(present, sblk)
-        pos = out_start[binv] + (np.arange(coo.nnz) - in_start[binv])
-        prow[pos] = rows
-        pcol[pos] = cols
-        pval[pos] = vals
-        # pad slots keep their block's base column (for in-block lane gather)
-        pad_mask = np.ones(total, dtype=bool)
-        pad_mask[pos] = False
-        pad_blk = np.repeat(present, padded)[pad_mask]
-        pcol[pad_mask] = pad_blk * block_cols
-        cfg = cfg.replace(segment_width=w)
-        base = ss.build_stream(coo, cfg, rows=prow, cols=pcol, vals=pval,
-                               sorted_combine=False)
-        # One block id per (8, W) kernel tile (total % (8w) == 0 by construction).
-        blk_per_tile = (pcol.reshape(-1, tile_elems)[:, 0]
-                        // block_cols).astype(np.int32)
-    else:
-        base = ss.build_stream(coo, cfg, rows=rows, cols=cols, vals=vals,
-                               sorted_combine=False)
-        blk_per_tile = np.zeros(cdiv(base.h, 8), dtype=np.int32)
-
+    base = ss.build_stream(coo, cfg, rows=coo.row[order], cols=coo.col[order],
+                           vals=coo.val[order], sorted_combine=False)
     d = {f: getattr(base, f) for f in (
         "n_row", "n_col", "w", "h", "r_max", "variant", "n_step",
         "step_counts", "sorted_combine", "col", "val", "heads", "end_pos",
         "rank_rows")}
-    if optimized and cfg.dtype == "float64":
-        # double-float (2×f32) value planes: the fused Pallas kernel runs f64
-        # SEMANTICS on f32 hardware (ops/df64.py; VERDICT r2 item 6) — the
-        # reference's all-f64 contract (src/util.h:7-39) at Pallas speed
-        # instead of the ~0.02 GFLOPS XLA-emulated fallback.
-        from ..ops.df64 import df_from_f64
-
-        vhi, vlo = df_from_f64(pval.reshape(base.h, base.w))
-        d["val_hi"], d["val_lo"] = device_put(vhi), device_put(vlo)
-        # compacted, row-sorted combine index (true runs only): the f64
-        # combine becomes a segmented df64 log-tree over f32 pairs — no
-        # scatter-ADD at all (XLA-emulated f64 scatter ran 0.015 GFLOPS);
-        # the only f64 op left is one dense cast+add over n_row
-        ep = np.asarray(base.end_pos)
-        rr = np.asarray(base.rank_rows)
-        hi_i, ri_i = np.nonzero(rr != coo.n_row)
-        pos_flat = (hi_i.astype(np.int64) * base.w
-                    + ep[hi_i, ri_i]).astype(np.int32)
-        rows_flat = rr[hi_i, ri_i].astype(np.int64)
-        ord_ = np.argsort(rows_flat, kind="stable")
-        pos_s, rows_s = pos_flat[ord_], rows_flat[ord_]
-        heads = np.ones(len(rows_s), np.int32)
-        heads[1:] = (rows_s[1:] != rows_s[:-1]).astype(np.int32)
-        end_mask = np.ones(len(rows_s), bool)
-        end_mask[:-1] = rows_s[1:] != rows_s[:-1]
-        end_idx = np.flatnonzero(end_mask).astype(np.int32)
-        seg_lens = np.diff(np.concatenate([[0], end_idx + 1]))
-        d["maxk_c"] = int(seg_lens.max(initial=1))
-        d["pos_c"] = device_put(pos_s)
-        d["rows_c"] = device_put(rows_s.astype(np.int32))
-        d["heads_c"] = device_put(heads)
-        d["end_idx"] = device_put(end_idx)
-        d["end_rows"] = device_put(rows_s[end_mask].astype(np.int32))
-    return CSSState(nnz=coo.nnz, n_block=n_block, block_cols=block_cols,
-                    n_xrow=cdiv(max(coo.n_col, 1), LANES),
-                    block_ids=device_put(blk_per_tile), **d)
+    return CSSState(nnz=coo.nnz, n_block=n_block, block_cols=block_cols, **d)
 
 
-def spmv(state: CSSState, x):
-    import jax.numpy as jnp
-
-    from ..ops import pallas as pallas_pkg
-
-    if state.val_hi is not None and x.dtype == jnp.float64:
-        # df64: fused kernel on (hi, lo) f32 planes; run-end extraction stays
-        # per-plane, but the cross-run combine widens each (hi, lo) partial to
-        # f64 FIRST and segment-sums in f64 — a plain f32 hi-plane sum would
-        # re-round every partial add (~k·2⁻²⁴ rel for k partials, ADVICE r3);
-        # the f64 combine is XLA-emulated but runs over runs, not nnz.
-        from ..ops.df64 import df_split_device, df_to_f64
-        from ..ops.pallas.blockgather import block_gather_scan_df
-        from ..ops.segsum import combine_partials, extract_run_partials
-
-        import jax
-
-        xp = jnp.zeros((state.n_xrow * LANES,), x.dtype)
-        xp = xp.at[: state.n_col].set(x)
-        xh, xl = df_split_device(xp)
-        # trace the Pallas call with x64 scoped OFF: under global x64,
-        # jnp.take_along_axis converts indices to the default int (int64),
-        # which Mosaic cannot lower ("64-bit types are not supported");
-        # every operand here is 32-bit by construction
-        with jax.enable_x64(False):
-            sh, sl = block_gather_scan_df(
-                state.block_ids, state.col, state.val_hi, state.val_lo,
-                state.heads.astype(jnp.int32),
-                xh.reshape(state.n_xrow, LANES),
-                xl.reshape(state.n_xrow, LANES))
-        if state.heads_c is not None:
-            # segmented df64 log-tree over row-sorted partials (all f32):
-            # compensated cross-run combine with NO f64 scatter; the one
-            # remaining f64 op is the dense hi+lo add below
-            from ..ops import df64 as df
-
-            ph = jnp.take(sh.reshape(-1), state.pos_c)[None, :]
-            plo = jnp.take(sl.reshape(-1), state.pos_c)[None, :]
-            f = state.heads_c[None, :]
-            dstep = 1
-            while dstep < state.maxk_c:
-                vhz = jnp.concatenate(
-                    [jnp.zeros_like(ph[:, :dstep]), ph[:, :-dstep]], axis=1)
-                vlz = jnp.concatenate(
-                    [jnp.zeros_like(plo[:, :dstep]), plo[:, :-dstep]], axis=1)
-                fz = jnp.concatenate(
-                    [jnp.ones_like(f[:, :dstep]), f[:, :-dstep]], axis=1)
-                ah, al = df.df_add_sloppy(ph, plo, vhz, vlz)
-                keep = f > 0
-                ph = jnp.where(keep, ph, ah)
-                plo = jnp.where(keep, plo, al)
-                f = jnp.maximum(f, fz)
-                dstep *= 2
-            ph, plo = df.df_renorm(ph, plo)
-            th = jnp.take(ph[0], state.end_idx)
-            tl = jnp.take(plo[0], state.end_idx)
-            z = jnp.zeros((state.n_row,), jnp.float32)
-            yh = z.at[state.end_rows].set(th, mode="drop",
-                                          unique_indices=True)
-            yl = z.at[state.end_rows].set(tl, mode="drop",
-                                          unique_indices=True)
-            return yh.astype(x.dtype) + yl.astype(x.dtype)
-        ph = extract_run_partials(sh, state.end_pos)
-        plo = extract_run_partials(sl, state.end_pos)
-        p64 = df_to_f64(ph, plo)
-        return combine_partials(p64, state.rank_rows, state.n_row)
-    if state.variant == "optimized" and pallas_pkg.supports(x.dtype):
-        from ..ops.pallas.blockgather import block_gather_scan
-
-        xp = jnp.zeros((state.n_xrow * LANES,), x.dtype)
-        xp = xp.at[: state.n_col].set(x)
-        scanned = block_gather_scan(
-            state.block_ids, state.col, state.val,
-            state.heads.astype(jnp.int32), xp.reshape(state.n_xrow, LANES))
-        return ss.reduce(state, scanned)
-    return ss.spmv(state, x)
-
-
-def mul(state: CSSState, x):
-    return ss.mul(state, x)
-
-
-def phases(state: CSSState):
-    if state.variant == "optimized":
-        return {"MulScan": spmv_scan_phase, "Sum2": ss.reduce}
-    return ss.phases(state)
-
-
-def spmv_scan_phase(state: CSSState, x):
-    import jax.numpy as jnp
-
-    from ..ops.pallas.blockgather import block_gather_scan
-
-    xp = jnp.zeros((state.n_xrow * LANES,), x.dtype).at[: state.n_col].set(x)
-    return block_gather_scan(state.block_ids, state.col, state.val,
-                             state.heads.astype(jnp.int32),
-                             xp.reshape(state.n_xrow, LANES))
-
-
+spmv = ss.spmv
+phases = ss.phases
 traffic_bytes = ss.traffic_bytes
 step_init = ss.step_init      # MEASURE_STEP_TIME shares the SS tree levels
 step_fns = ss.step_fns

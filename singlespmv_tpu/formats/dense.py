@@ -1,13 +1,15 @@
 """Dense baseline ("vendor" path #1 — the MKL analog).
 
 Reference: /root/reference/src/opt_mkl.cpp calls Intel MKL's ``mkl_dcsrmv`` (:54) as
-the vendor-library baseline.  On TPU the vendor path is XLA itself: densify and run
-the matvec on the MXU via ``jnp.dot``.  Only sane for matrices that fit densely —
+the vendor-library baseline.  Here the dense path is XLA itself: densify and run
+the matvec as ``jnp.dot`` (cuBLAS on the GPU) at ``Precision.HIGHEST``, so float32
+never drops to TF32.  Only sane for matrices that fit densely —
 convert() enforces a size guard (the artificial suite's dense-N cases are the target,
 matrix/artificial/gen.sh).
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -41,16 +43,17 @@ def convert(coo: COOMatrix, cfg: Config) -> DenseState:
 
 def spmv(state: DenseState, x):
     xp = jnp.zeros(state.mat.shape[1], dtype=x.dtype).at[: state.n_col].set(x)
-    y = jnp.dot(state.mat, xp, preferred_element_type=state.mat.dtype)
+    y = jnp.dot(state.mat, xp, preferred_element_type=state.mat.dtype,
+                precision=jax.lax.Precision.HIGHEST)
     return y[: state.n_row]
 
 
 def spmm(state: DenseState, X):
-    """Y = A @ X on the MXU."""
+    """Y = A @ X as one dense matrix product."""
     Xp = jnp.zeros((state.mat.shape[1], X.shape[1]), dtype=X.dtype)
     Xp = Xp.at[: state.n_col].set(X)
-    return jnp.dot(state.mat, Xp,
-                   preferred_element_type=state.mat.dtype)[: state.n_row]
+    return jnp.dot(state.mat, Xp, preferred_element_type=state.mat.dtype,
+                   precision=jax.lax.Precision.HIGHEST)[: state.n_row]
 
 
 def traffic_bytes(state: DenseState, cfg: Config) -> int:

@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/opt_dia.cpp — bucket nnz by diagonal ``col-row``
 (:21-62), dense per-diagonal arrays, serial sweep kernel (:75-92).  DIA is the most
-TPU-natural format of the zoo: each diagonal is a dense vector multiplied by a
+streaming-friendly format of the zoo: each diagonal is a dense vector multiplied by a
 *shifted* window of x — no index arrays touched in the hot loop at all.  We store a
 (nDiag, n_row_pad) dense table plus a zero-padded x window gather whose indices are an
 affine iota (diag offset + row), which XLA turns into cheap strided loads.
@@ -13,14 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import Config
+from ..core import hostmem as hm
 from ..core.types import COOMatrix, round_up
 from .base import device_put, pytree_dataclass
 
-MAX_DIA_ELEMENTS = 1 << 30  # 4 GiB of f32 diagonal storage (v5e has 16 GB
-#                             HBM; the r3 1 GiB cap shut dia out of the
-#                             stencil-giant class — cage15's ~91 jittered
-#                             stripe offsets × 5.15 M rows = 1.9 GB streams
-#                             at roofline, ~4× the CSR5/AVX2 baseline)
+MAX_DIA_ELEMENTS = 1 << 30  # 4 GiB of f32 diagonal storage: admits the
+#                             stencil-giant class (cage15's ~91 jittered
+#                             stripe offsets × 5.15 M rows = 1.9 GB)
 
 
 @pytree_dataclass(meta=("n_row", "n_col", "nnz", "n_diag", "n_row_pad", "x_pad_left",
@@ -35,12 +34,12 @@ class DIAState:
     x_pad_len: int    # total padded-x length (static)
     offsets: tuple    # (n_diag,) STATIC python ints — diagonal offsets (col - row).
                       # Static so the kernel unrolls into per-diagonal dense slices
-                      # of x (a gather here runs ~100x slower on TPU than slicing).
+                      # of x: contiguous loads instead of a gather.
     diag: object      # (n_diag, n_row_pad) float
 
 
 def convert(coo: COOMatrix, cfg: Config) -> DIAState:
-    offs = np.unique(coo.col.astype(np.int64) - coo.row.astype(np.int64)) \
+    offs = hm.unique(coo.col.astype(np.int64) - coo.row.astype(np.int64)) \
         if coo.nnz else np.zeros(1, dtype=np.int64)
     n_diag = int(offs.shape[0])
     n_row_pad = round_up(max(coo.n_row, 1), cfg.lane_width)
@@ -72,8 +71,7 @@ def convert(coo: COOMatrix, cfg: Config) -> DIAState:
 
 def spmv(state: DIAState, x):
     """y = Σ_d diag[d] · x[row + off_d]: each diagonal is a STATIC slice of the
-    padded x — pure streaming loads, no gather (the affine-iota gather formulation
-    measured ~0.3 GFLOPS on TPU vs tens of GFLOPS for slices)."""
+    padded x — pure streaming loads, no gather and no index arrays."""
     import jax
 
     xp = jnp.zeros(state.x_pad_len + state.n_row_pad, dtype=x.dtype)

@@ -1,10 +1,10 @@
-"""ELL format, transposed for TPU lanes ("ELL-T").
+"""ELL format, transposed ("ELL-T").
 
 Reference: /root/reference/src/opt_ell.cpp — pad every row to K = max row length
-(:27-59), row-parallel kernel over the fixed K (:75-89).  The TPU-native layout is
-*transposed*: (K, n_row_pad) with rows on the 128-lane axis, so the k-th entry of all
-rows is one vector; SpMV is K fused gather-multiply steps + a K-reduction, a perfectly
-rectangular VPU workload.  Padding entries use col=0 / val=0 (the reference pads with
+(:27-59), row-parallel kernel over the fixed K (:75-89).  The layout here is
+*transposed*: (K, n_row_pad) with rows on the minor axis, so the k-th entry of all
+rows is one contiguous vector; SpMV is K fused gather-multiply steps + a K-reduction,
+a perfectly rectangular workload.  Padding entries use col=0 / val=0 (the reference pads with
 col=position, val=0 — equivalent: val 0 annihilates).
 """
 from __future__ import annotations

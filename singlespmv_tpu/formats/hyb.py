@@ -1,39 +1,35 @@
-"""HYB — dense-diagonal peel + scattered residual (the natural-suite workhorse).
+"""HYB — dense-diagonal peel + scattered residual.
 
-Most of the reference's 26 SuiteSparse matrices are *mixtures*: dense or
+Many of the reference's 26 SuiteSparse matrices are *mixtures*: dense or
 near-dense diagonal stripes (3-D stencils, circuit diagonals, spectral bands,
 Jacobian coupling stripes) carrying 20-100% of the nnz, plus a scattered
-remainder.  On CPU the stripes and the scatter cost the same (cache-served
-gathers, reference `opt_dia.cpp` vs `opt_crs.cpp`); on TPU they differ by ~50x:
-a dense diagonal streams with *zero index arrays* (dia: measured 176-190
-GFLOPS) while scattered nnz ride the bucketed lane-gather path (bkt: 2-8
-GFLOPS).  So the structure-adaptive move is to split the matrix by diagonal
-density and give each part its optimal engine:
+remainder.  A dense diagonal streams with *zero index arrays* (``formats.dia``:
+static shifted slices of x), while a scattered nonzero pays a random gather of
+x and a scatter-add.  So the structure-adaptive move is to split the matrix by
+diagonal density and give each part its own format:
 
-- every diagonal offset whose nnz count clears a cost-model threshold is
-  peeled into a DIA table (``formats.dia`` — static shifted slices of x);
-- the residual rides the best scattered format (slab / bkt / bkt_g / bsr /
-  css / ellg, chosen by the same cost model ``formats.auto`` uses).
+- every diagonal offset whose nnz count clears a cost threshold (the dia
+  stream cost of the diagonal against the gather + scatter cost of its nnz,
+  both from the device's calibrated rates, ``core/chipconst``) is peeled into
+  a DIA table;
+- the residual rides the cheapest of csr / coo / ell / bsr, chosen by the same
+  cost model ``formats.auto`` uses.
 
-This is the TPU analog of the classic GPU HYB (ELL+COO) split, re-cut along
-the axis that matters on this hardware: streaming vs lane-gather, not row
-regularity.  Reference context: DIA kernel `src/opt_dia.cpp:75-92`, format
-sweep `script/gen_todo.sh` (the reference benchmarks formats one at a time;
-the hybrid is this rebuild's own contribution).
+This is the classic GPU HYB (ELL+COO) split re-cut along the axis of streamed
+vs gathered data instead of row regularity.  Reference context: DIA kernel
+`src/opt_dia.cpp:75-92`, format sweep `script/gen_todo.sh` (the reference
+benchmarks formats one at a time; the hybrid is this rebuild's own contribution).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import Config
+from ..core import chipconst
 from ..core.types import COOMatrix, round_up
 from . import dia as dia_mod
 from .base import pytree_dataclass
 
-# Cost-model constants (TPU v5e, measured — see PERFORMANCE.md):
-HBM_BPS = 700e9          # streamed bytes/s achieved
-DIA_BYTES_PER_SLOT = 8   # diag element + x element (f32)
-RESID_SEC_PER_NNZ = 0.5e-9   # scattered-path marginal cost (bkt_g ~2-4 GFLOPS)
 MAX_PEEL_ELEMENTS = 1 << 28  # respect dia's density guard (1 GiB of f32)
 
 
@@ -48,31 +44,39 @@ def _diag_histogram(coo: COOMatrix):
     return uniq[order], counts[order]
 
 
-def plan_peel(coo: COOMatrix, cfg: Config):
+def _rates(cfg: Config, consts):
+    """(seconds per peeled diagonal slot, seconds per residual nonzero)."""
+    c = consts or chipconst.constants()
+    vsz = np.dtype(cfg.dtype).itemsize
+    return (2 * vsz / c["hbm_bps"],
+            1.0 / c["gather_rate"] + 1.0 / c["scatter_rate"])
+
+
+def plan_peel(coo: COOMatrix, cfg: Config, consts: dict = None):
     """Greedy diagonal selection: peel offsets (densest first) while the DIA
     stream cost of one more diagonal is below the scattered-path cost of its
     nnz, within dia's memory guard.  Returns (peel_offsets, peel_nnz)."""
     uniq, counts = _diag_histogram(coo)
+    slot_s, nnz_s = _rates(cfg, consts)
     n_row_pad = round_up(max(coo.n_row, 1), cfg.lane_width)
-    dia_sec_per_diag = n_row_pad * DIA_BYTES_PER_SLOT / HBM_BPS
     max_diags = max(0, int(MAX_PEEL_ELEMENTS // max(n_row_pad, 1)))
-    gain = counts * RESID_SEC_PER_NNZ
-    keep = gain > dia_sec_per_diag
+    keep = counts * nnz_s > n_row_pad * slot_s
     n_keep = min(int(keep.sum()), max_diags)
     return uniq[:n_keep], int(counts[:n_keep].sum())
 
 
-def estimate(coo: COOMatrix, cfg: Config) -> dict:
+def estimate(coo: COOMatrix, cfg: Config, consts: dict = None) -> dict:
     """Convert-free cost probe for formats.auto: seconds per SpMV if hyb is
     chosen, or infeasible when no diagonal clears the peel threshold."""
-    peel_offs, peel_nnz = plan_peel(coo, cfg)
+    peel_offs, peel_nnz = plan_peel(coo, cfg, consts)
     resid_nnz = coo.nnz - peel_nnz
     feasible = peel_offs.size > 0 and peel_nnz >= max(coo.nnz // 8, 1)
     n_row_pad = round_up(max(coo.n_row, 1), cfg.lane_width)
-    dia_sec = peel_offs.size * n_row_pad * DIA_BYTES_PER_SLOT / HBM_BPS
+    slot_s, _ = _rates(cfg, consts)
+    dia_sec = peel_offs.size * n_row_pad * slot_s
     return {"feasible": feasible, "n_diag": int(peel_offs.size),
-            "peel_nnz": peel_nnz, "resid_nnz": int(resid_nnz),
-            "dia_sec": dia_sec}
+            "peel_offs": peel_offs, "peel_nnz": peel_nnz,
+            "resid_nnz": int(resid_nnz), "dia_sec": dia_sec}
 
 
 def _split(coo: COOMatrix, peel_offs: np.ndarray, cfg: Config):
@@ -99,16 +103,12 @@ class HYBState:
 
 
 def _rest_modules():
-    # ellg excluded for the same measured-domination reason as in
-    # formats.auto.estimate_costs (slab beats it on every r2-suite overlap)
-    from . import bkt as bkt_mod
     from . import bsr as bsr_mod
-    from . import css as css_mod
-    from . import slab as slab_mod
-    from . import xch as xch_mod
+    from . import coo as coo_mod
+    from . import csr as csr_mod
+    from . import ell as ell_mod
 
-    return {"bkt": bkt_mod, "bkt_g": bkt_mod, "bsr": bsr_mod, "css": css_mod,
-            "slab": slab_mod, "xch": xch_mod}
+    return {"csr": csr_mod, "coo": coo_mod, "ell": ell_mod, "bsr": bsr_mod}
 
 
 def convert(coo: COOMatrix, cfg: Config) -> HYBState:
@@ -124,17 +124,16 @@ def convert(coo: COOMatrix, cfg: Config) -> HYBState:
         return HYBState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
                         rest_fmt="", peel_nnz=peel_nnz,
                         dia_state=dia_state, rest_state=None)
-    # Residual: pick the cheapest scattered engine with auto's cost model
+    # Residual: pick the cheapest residual format with auto's cost model
     # (dia/dense/hyb excluded — the residual has no dense stripes left).
     from .auto import estimate_costs
 
-    costs = estimate_costs(rest_coo, cfg)
+    costs = estimate_costs(rest_coo, cfg, _inner=True)
     mods = _rest_modules()
     last_err = None
     for name in sorted((k for k in costs if k in mods), key=costs.get):
-        ccfg = cfg.replace(bkt_row_group=1024) if name == "bkt_g" else cfg
         try:
-            rest_state = mods[name].convert(rest_coo, ccfg)
+            rest_state = mods[name].convert(rest_coo, cfg)
             return HYBState(n_row=coo.n_row, n_col=coo.n_col, nnz=coo.nnz,
                             rest_fmt=name, peel_nnz=peel_nnz,
                             dia_state=dia_state, rest_state=rest_state)

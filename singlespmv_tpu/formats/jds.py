@@ -2,8 +2,8 @@
 
 Reference: /root/reference/src/opt_jds.cpp — rows sorted by descending nnz (perm,
 :41-46), jagged diagonals stored contiguously with per-diagonal ptr (:47-59), kernel
-indexes ptr[i]+r (:92-103).  On TPU, jagged per-diagonal lengths break static shapes,
-so the TPU-native JDS is: row permutation (descending length) + the transposed ELL
+indexes ptr[i]+r (:92-103).  Under XLA, jagged per-diagonal lengths break static
+shapes, so JDS here is: row permutation (descending length) + the transposed ELL
 layout of the *permuted* matrix + an inverse-permutation gather on the output.  After
 sorting, the short rows' padding is clustered at the tail of each diagonal (all-zero
 lanes vectorize for free), which is exactly the load-balance property JDS exists for.

@@ -5,12 +5,11 @@ segments of width W=SEGMENT_WIDTH; SpMV runs as phase "Mul" (elementwise
 val·x[col] over H×W, :226-239), phase "Sum1" (log-tree reduction, :242-260) and phase
 "Sum2" (per-row gather of reduced partials, :263-303).
 
-TPU-native re-design (same three phases, hardware-shaped):
-- stream laid out (H, W) with W a multiple of the 128-lane width;
-- Mul = XLA gather + multiply (VPU);
-- Sum1 = *intra-segment* segmented inclusive scan: "simple" variant is
-  ``lax.associative_scan`` (XLA emits the log₂(W) shifted-add tree), "optimized" is a
-  Pallas VMEM kernel (ops.pallas.segscan);
+XLA-level re-design (same three phases):
+- stream laid out (H, W) with W a multiple of ``cfg.lane_width``;
+- Mul = XLA gather + multiply;
+- Sum1 = *intra-segment* segmented inclusive scan, ``lax.associative_scan``
+  (XLA emits the log₂(W) shifted-add tree);
 - Sum2 = gather each row-run's inclusive total at its run-end position (end_pos,
   precomputed at convert) and a *small* sorted scatter of the (H, R_max) partials —
   R_max = max row-runs per segment, usually ≪ W, so the scatter traffic is a fraction
@@ -125,12 +124,6 @@ def mul(state: SSState, x):
 
 
 def scan(state: SSState, products):
-    from ..ops import pallas as pallas_pkg
-
-    if state.variant == "optimized" and pallas_pkg.supports(products.dtype):
-        from ..ops.pallas.segscan import segmented_scan_tiles
-
-        return segmented_scan_tiles(products, state.heads)
     return segmented_scan_inclusive(products, state.heads)
 
 

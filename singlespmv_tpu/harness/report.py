@@ -4,7 +4,8 @@ The reference's machine-readable output contract: ``%25s\\t%s`` key-value rows b
 a 40×'+' opener and 40×'-' closer (/root/reference/src/main.cpp:109-207).  The
 downstream toolchain (log/format.cpp) keys on Matrix / Architecture / MatrixFormat /
 Performance(GFLOPS) / nRow / nCol / nNnz — we keep that schema exactly and add
-TPU-era keys (bandwidth, roofline, convert time) plus a JSONL sidecar.
+device keys (device kind, bandwidth, roofline, convert time) plus a JSONL
+sidecar.
 """
 from __future__ import annotations
 

@@ -2,14 +2,14 @@
 
 The reference's headline artifact is measured GFLOPS over 26 SuiteSparse
 matrices (vendored results `cpu-15-10-01-13-17.tsv`, tabulated in BASELINE.md).
-This module reruns that campaign on TPU: for each suite matrix it builds the
+This module reruns that campaign on the attached device: for each suite matrix it builds the
 structure-matched stand-in (data.structgen — no egress here; pass
 ``matrix_dir`` to use real downloaded .mtx instead), benchmarks the ``auto``
 planner's choice through the standard driver, and emits a TSV with the
 per-matrix reference baseline and the ratio — the judge-facing
 repo-vs-reference column.
 
-Run: ``python -m singlespmv_tpu suite-bench --out results/r2_tpu_suite.tsv``
+Run: ``python -m singlespmv_tpu.harness.suite --out suite.tsv [names ...]``
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ BASELINE_AVX2: Dict[str, float] = {
 
 TSV_COLS = ("Matrix", "nRow", "nNnz", "ChosenFormat", "GFLOPS",
             "BaselineGFLOPS", "vsBaseline", "BandwidthGBs", "RooflinePct",
-            "AttainPct", "OptimizeTimeS", "Verify")
+            "DeviceKind", "OptimizeTimeS", "Verify")
 
 
 def run_suite(names: Optional[List[str]] = None, *,
@@ -96,8 +96,9 @@ def run_suite(names: Optional[List[str]] = None, *,
                 "BaselineGFLOPS": base,
                 "vsBaseline": round(res.gflops / base, 3) if base else "",
                 "BandwidthGBs": round(r.get("Bandwidth(GB/s)", 0.0), 1),
-                "RooflinePct": round(r.get("RooflinePct", 0.0), 1),
-                "AttainPct": round(r.get("AttainablePct", 0.0), 1),
+                "RooflinePct": (round(r["RooflinePct"], 1)
+                                if "RooflinePct" in r else ""),
+                "DeviceKind": r["DeviceKind"],
                 "OptimizeTimeS": round(r["OptimizeTime(s)"], 2),
                 "Verify": r["Verify"],
             })

@@ -58,8 +58,8 @@ def config_from_row(row: Dict[str, str]) -> Config:
 
 
 def default_todo() -> str:
-    """The reference's gen_todo.sh sweep (script/gen_todo.sh:1-47), TPU-sized:
-    CRS + baselines, SS simple/optimized × widths, CSS × n_block, CSR5 × sigma."""
+    """The reference's gen_todo.sh sweep (script/gen_todo.sh:1-47): CRS +
+    baselines, SS × widths, CSS × n_block, CSR5 × sigma."""
     rows = ["prefix,format,variant,segment_width,n_block,sigma"]
     rows.append("crs,csr,optimized,,,")
     rows.append("coo,coo,optimized,,,")
@@ -69,16 +69,12 @@ def default_todo() -> str:
     rows.append("dense,dense,optimized,,,")
     rows.append("bcoo,bcoo,optimized,,,")
     rows.append("bsr,bsr,optimized,,,")
-    rows.append("bkt,bkt,optimized,,,")
-    rows.append("slab,slab,optimized,,,")
     rows.append("hyb,hyb,optimized,,,")
-    rows.append("xch,xch,optimized,,,")
     rows.append("auto,auto,optimized,,,")
     for w in (256, 512, 1024, 2048, 4096, 8192, 16384):
-        rows.append(f"ss-simple-{w},ss,simple,{w},,")
-        rows.append(f"ss-opt-{w},ss,optimized,{w},,")
+        rows.append(f"ss-{w},ss,simple,{w},,")
     for nb in (1, 2, 4, 8, 16):
-        rows.append(f"css-{nb},css,optimized,2048,{nb},")
+        rows.append(f"css-{nb},css,simple,2048,{nb},")
     for sig in (0, 4, 8, 16, 32):
         rows.append(f"csr5-s{sig},csr5,optimized,,,{sig}")
     return "\n".join(rows) + "\n"

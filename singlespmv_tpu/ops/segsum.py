@@ -1,10 +1,12 @@
 """Segment-reduction engines (XLA level).
 
-TPUs have no atomics, so the reference's atomic-scatter COO kernel
-(/root/reference/src/opt_coo.cpp:34-45) and its segmented-scan SS kernels
-(/root/reference/src/opt_ss.cpp:188-349) both become *sort-order* segment reductions:
+The reference's atomic-scatter COO kernel (src/opt_coo.cpp:34-45) and its
+segmented-scan SS kernels (src/opt_ss.cpp:188-349) both
+become *sort-order* segment reductions:
 
 - ``segment_sum_sorted``: XLA scatter-add over row-sorted products (the COO path).
+  On the GPU XLA lowers it to atomic adds, so repeated calls may differ in the
+  last bits.
 - ``segmented_scan_inclusive``: segmented inclusive prefix-sum along the last axis via
   ``lax.associative_scan`` — the "SIMPLE" SS variant; XLA compiles it into log₂(W)
   shifted-add steps, the direct analog of the reference's log-tree

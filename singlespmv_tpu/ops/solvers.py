@@ -10,11 +10,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import jax
 import numpy as np
 
 from ..config import Config
 from ..core.types import COOMatrix
 from .. import formats
+
+# float32 dot products must not drop to TF32 on the GPU
+HI = jax.lax.Precision.HIGHEST
 
 
 @dataclasses.dataclass
@@ -45,11 +49,11 @@ def cg(coo: COOMatrix, b, *, cfg: Optional[Config] = None, tol: float = 1e-6,
     def body(carry):
         x, r, z, p, rz, it = carry
         Ap = spmv(state, p)
-        alpha = rz / jnp.vdot(p, Ap)
+        alpha = rz / jnp.vdot(p, Ap, precision=HI)
         x = x + alpha * p
         r = r - alpha * Ap
         z = Mi(r)
-        rz_new = jnp.vdot(r, z)
+        rz_new = jnp.vdot(r, z, precision=HI)
         p = z + (rz_new / rz) * p
         return x, r, z, p, rz_new, it + 1
 
@@ -64,7 +68,8 @@ def cg(coo: COOMatrix, b, *, cfg: Optional[Config] = None, tol: float = 1e-6,
         x0 = jnp.zeros_like(b)
         r0 = b
         z0 = Mi(r0)
-        carry = (x0, r0, z0, z0, jnp.vdot(r0, z0), jnp.asarray(0))
+        carry = (x0, r0, z0, z0, jnp.vdot(r0, z0, precision=HI),
+                 jnp.asarray(0))
         x, r, *_, it = jax.lax.while_loop(cond, body, carry)
         return x, jnp.linalg.norm(r), it
 
@@ -88,16 +93,17 @@ def bicgstab(coo: COOMatrix, b, *, cfg: Optional[Config] = None,
 
     def body(carry):
         x, r, rhat, p, v, rho, alpha, omega, it = carry
-        rho_new = jnp.vdot(rhat, r)
+        rho_new = jnp.vdot(rhat, r, precision=HI)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         phat = Mi(p)
         v = spmv(state, phat)
-        alpha = rho_new / jnp.vdot(rhat, v)
+        alpha = rho_new / jnp.vdot(rhat, v, precision=HI)
         s = r - alpha * v
         shat = Mi(s)
         t = spmv(state, shat)
-        omega = jnp.vdot(t, s) / jnp.vdot(t, t)
+        omega = (jnp.vdot(t, s, precision=HI)
+                 / jnp.vdot(t, t, precision=HI))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         return x, r, rhat, p, v, rho_new, alpha, omega, it + 1

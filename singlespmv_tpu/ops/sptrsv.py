@@ -4,7 +4,7 @@ No reference analog (the reference is SpMV-only).  Classic level scheduling, bui
 with the same analysis machinery as the JDS/DIA converts: rows are grouped into
 dependency levels on the host (level[r] = 1 + max level over r's off-diagonal
 columns), then the solve runs one ``lax.fori_loop`` step per level — each level is a
-rectangular padded gather/FMA (ELL-style slots), fully parallel on the VPU; the
+rectangular padded gather/FMA (ELL-style slots), fully data-parallel; the
 sequential depth is the DAG depth, not n_row.
 
 Solves L·y = b (lower, unit or not) and U·y = b (upper) — the substitution kernels

@@ -9,8 +9,8 @@ mesh sizes 1, 2, 4, ... over the available devices:
 - **strong scaling**: one fixed matrix; efficiency = rate(N) / (N · rate(1)).
 
 On the CPU backend (virtual devices) the numbers exercise the sharding/collective
-machinery rather than real ICI; on a pod slice the same code measures the real
-thing (the mesh comes from parallel.mesh.make_mesh either way).
+machinery rather than a real interconnect; on several GPUs the same code measures
+the real thing (the mesh comes from parallel.mesh.make_mesh either way).
 """
 from __future__ import annotations
 

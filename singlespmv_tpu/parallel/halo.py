@@ -14,9 +14,9 @@ alternative:
   a volume+latency cost model:
 
   * ``rounds`` — ppermute rounds scheduled as greedy size-balanced
-    *matchings* over the pairwise-need matrix (not distance keying: the r2
-    distance rounds padded every round to its max pair and degraded to R−1
-    near-dense rounds on scattered inputs — VERDICT r2 "What's weak" 3).
+    *matchings* over the pairwise-need matrix (not distance keying: distance
+    rounds pad every round to its max pair and degrade to R−1 near-dense
+    rounds on scattered inputs).
     Each round every shard sends to at most one peer; only nonzero pairs
     are scheduled, and same-sized pairs share a round so the uniform-shape
     padding is tight.  Best when needs are sparse and asymmetric (bands).
@@ -28,7 +28,7 @@ alternative:
     worst case equals the plain all-gather, never 10× worse.
 
 - The jitted step issues the exchange first, then computes the local stream's
-  SpMV, then the halo stream's: XLA's async collectives overlap the ICI
+  SpMV, then the halo stream's: XLA's async collectives overlap the NVLink
   transfer with the local compute (on the CPU test backend collectives are
   synchronous — the win there is the reduced exchange *volume* and collective
   *count*).
@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import Config
+from ..core import hostmem as hm
 from ..core.types import COOMatrix, cdiv, round_up
 from ..formats import ss as ss_format
 from ..ops.segsum import (combine_partials, extract_run_partials,
@@ -48,7 +49,7 @@ from ..ops.segsum import (combine_partials, extract_run_partials,
 
 # exchange-plan cost model: elements-equivalent fixed cost per collective
 # (dispatch + synchronization; dominates small halos on both the CPU test
-# backend and real ICI at microsecond scale)
+# backend and a real interconnect at microsecond scale)
 LAT_ELEMS = 4096
 _EMPTY = np.zeros(0, dtype=np.int64)
 
@@ -125,9 +126,9 @@ class HaloSpMV:
 
         # Row assignment: contiguous when it is balanced (bands keep row
         # locality, so a shard needs only its neighbours' x slices), else the
-        # snake-deal of DistSpMV — r2's always-contiguous split handed one
+        # snake-deal of DistSpMV — an always-contiguous split hands one
         # shard 7× the mean stream on power-law inputs (heavy rows cluster),
-        # and the max-shard padding made every shard pay for it.
+        # and the max-shard padding makes every shard pay for it.
         rows_per = cdiv(max(coo.n_row, 1), R)
         xs = cdiv(max(coo.n_col, 1), R)
         cont_s = np.minimum(coo.row // rows_per, R - 1).astype(np.int64)
@@ -162,7 +163,7 @@ class HaloSpMV:
                 if o == s:
                     continue
                 m = in_s & (e_owner == o)
-                needs[(s, o)] = np.unique(coo.col[m]) if m.any() else \
+                needs[(s, o)] = hm.unique(coo.col[m]) if m.any() else \
                     np.zeros(0, dtype=np.int64)
 
         # Scattered inputs put most nnz on the halo side; running a separate
@@ -174,7 +175,7 @@ class HaloSpMV:
         if merged:
             for s in range(R):
                 m = (e_s == s) & (e_owner == s)
-                needs[(s, s)] = np.unique(coo.col[m]) if m.any() else \
+                needs[(s, s)] = hm.unique(coo.col[m]) if m.any() else \
                     np.zeros(0, dtype=np.int64)
 
         # --- exchange plans + cost-model pick -------------------------------
@@ -185,7 +186,7 @@ class HaloSpMV:
         vol_rounds = sum(h for _, h in rounds)
         cost_rounds = vol_rounds + LAT_ELEMS * len(rounds)
 
-        boundary = {o: (np.unique(np.concatenate(
+        boundary = {o: (hm.unique(np.concatenate(
                             [needs[(s, o)] for s in range(R)
                              if (s, o) in needs]))
                         if any(needs.get((s, o), _EMPTY).size
@@ -321,20 +322,13 @@ class HaloSpMV:
         mesh, R, xs = self.mesh, self.R, self.xs
         rows_per, rounds, mode = self.rows_per, self.rounds, self.mode
         merged = self.merged
-        use_pallas = (self.cfg.variant == "optimized"
-                      and jax.default_backend() == "tpu")
 
         def ss_apply(st, x_all):
             col, val = st["col"][0], st["val"][0]
             heads, end_pos = st["heads"][0], st["end_pos"][0]
             rank_rows = st["rank_rows"][0]
             prod = val * x_all[col]
-            if use_pallas:
-                from ..ops.pallas.segscan import segmented_scan_tiles
-
-                scanned = segmented_scan_tiles(prod, heads)
-            else:
-                scanned = segmented_scan_inclusive(prod, heads.astype(bool))
+            scanned = segmented_scan_inclusive(prod, heads.astype(bool))
             partials = extract_run_partials(scanned, end_pos)
             return combine_partials(partials, rank_rows, rows_per)
 

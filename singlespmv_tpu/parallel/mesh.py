@@ -15,9 +15,9 @@ def device_count() -> int:
 def make_mesh(shape: Optional[Sequence[Tuple[str, int]]] = None):
     """Build a Mesh from (axis, size) pairs; default = 1-D "row" mesh of all devices.
 
-    On a real pod slice the device order respects ICI topology via
-    ``mesh_utils.create_device_mesh``; on the CPU backend (virtual devices) plain
-    reshape is fine.
+    A plain reshape of the first n devices: NVLink joins the cards of a host all
+    to all, so the device order carries no topology (and the CPU backend's
+    virtual devices have none either).
     """
     import jax
     from jax.sharding import Mesh
@@ -30,13 +30,4 @@ def make_mesh(shape: Optional[Sequence[Tuple[str, int]]] = None):
     devs = jax.devices()[:n]
     if n > len(devs):
         raise ValueError(f"mesh needs {n} devices, have {len(devs)}")
-    try:
-        from jax.experimental import mesh_utils
-
-        if jax.default_backend() == "tpu":
-            arr = mesh_utils.create_device_mesh(sizes, devices=devs)
-        else:
-            arr = np.array(devs).reshape(sizes)
-    except Exception:
-        arr = np.array(devs).reshape(sizes)
-    return Mesh(arr, names)
+    return Mesh(np.array(devs).reshape(sizes), names)

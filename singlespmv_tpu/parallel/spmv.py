@@ -15,12 +15,12 @@ all-gather/all-to-all overlapped with local SpMV compute").  Design:
 - **x exchange**: x is sharded over "col" (each shard holds the slice its column
   block needs — the CSS idea, cache→HBM-locality, /root/reference/src/opt_css.cpp:33-45).
   With ``gather_x=True`` (1-D row meshes) x is sharded over "row" and all-gathered
-  over ICI inside shard_map.
-- **y reduce**: partial row results are ``psum``'d over "col" (the TPU analog of
+  inside shard_map.
+- **y reduce**: partial row results are ``psum``'d over "col" (the analog of
   CSR5's cross-thread calibration), then shards' row blocks concatenate over "row".
 
 No NCCL/MPI analog exists in the reference (SURVEY §2.6) — collectives here are XLA
-ICI collectives by construction.
+collectives, which the GPU backend hands to NCCL over NVLink.
 """
 from __future__ import annotations
 
@@ -184,8 +184,6 @@ class DistSpMV:
             else (row_axis,)
         grid_spec = P(grid)
         x_spec = P(row_axis) if gather_x else P(col_axis if C > 1 else None)
-        use_pallas = (self.cfg.variant == "optimized"
-                      and jax.default_backend() == "tpu")
 
         def local_spmv(col, val, heads, end_pos, rank_rows, x_loc):
             col, val = col[0], val[0]
@@ -196,11 +194,7 @@ class DistSpMV:
                 x_all = x_loc
             x_all = x_all[:cols_per] if not gather_x else x_all
             prod = val * x_all[col]
-            if use_pallas:
-                from ..ops.pallas.segscan import segmented_scan_tiles
-                scanned = segmented_scan_tiles(prod, heads)
-            else:
-                scanned = segmented_scan_inclusive(prod, heads.astype(bool))
+            scanned = segmented_scan_inclusive(prod, heads.astype(bool))
             partials = extract_run_partials(scanned, end_pos)
             y_loc = combine_partials(partials, rank_rows, rows_per)
             if C > 1:

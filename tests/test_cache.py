@@ -31,17 +31,6 @@ def test_roundtrip_simple(tmp_path):
     _check(coo, cfg, st2)
 
 
-def test_roundtrip_nested_bkt(tmp_path):
-    coo = powerlaw(2000, 60000, seed=5)     # spills (ghost columns or deep S)
-    cfg = F64.replace(format="bkt", bkt_balance=False)
-    st = formats.convert(coo, cfg)
-    p = str(tmp_path / "bkt")
-    save_state(p, st, coo, cfg)
-    st2 = load_state(p, coo, cfg)
-    assert st2.n_ghost == st.n_ghost and st2.n_slots == st.n_slots
-    _check(coo, cfg, st2)
-
-
 def test_roundtrip_auto_wrapper(tmp_path):
     coo = generate("band", 512, 8, seed=2)
     cfg = F64.replace(format="auto")
@@ -70,3 +59,67 @@ def test_convert_cached(tmp_path):
     st2 = convert_cached(coo, cfg, str(tmp_path), "m1")   # from disk
     np.testing.assert_array_equal(np.asarray(st1.col), np.asarray(st2.col))
     _check(coo, cfg, st2)
+
+
+def test_roundtrip_nested_hyb(tmp_path):
+    """hyb nests a dia state and a residual state; both survive the cache."""
+    from singlespmv_tpu.data.generators import generate as gen
+
+    band = gen("band", 256, 4, seed=2)
+    rng = np.random.default_rng(3)
+    coo = band.__class__.from_triplets(
+        256, 256, np.concatenate([band.row, rng.integers(0, 256, 300)]),
+        np.concatenate([band.col, rng.integers(0, 256, 300)]),
+        np.concatenate([band.val, rng.uniform(size=300)]),
+        sum_duplicates=True)
+    cfg = F64.replace(format="hyb")
+    st = formats.convert(coo, cfg)
+    assert st.rest_fmt
+    p = str(tmp_path / "hyb")
+    save_state(p, st, coo, cfg)
+    st2 = load_state(p, coo, cfg)
+    assert st2.rest_fmt == st.rest_fmt and st2.peel_nnz == st.peel_nnz
+    _check(coo, cfg, st2)
+
+
+def test_state_from_other_device_kind_rejected(tmp_path):
+    """The fingerprint carries the device kind: a state planned on one
+    device is never reused on another."""
+    import json
+
+    coo = generate("band", 96, 5, seed=1)
+    cfg = F64.replace(format="auto")
+    p = str(tmp_path / "s")
+    save_state(p, formats.convert(coo, cfg), coo, cfg)
+    assert load_state(p, coo, cfg) is not None
+    meta = json.loads(open(p + ".json").read())
+    assert meta["fingerprint"]["device_kind"] == jax.devices()[0].device_kind
+    meta["fingerprint"]["device_kind"] = "Some Other Device"
+    with open(p + ".json", "w") as f:
+        json.dump(meta, f)
+    assert load_state(p, coo, cfg) is None
+
+
+def test_compile_cache_honours_env(tmp_path, monkeypatch):
+    from singlespmv_tpu.core import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.setup() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before   # nothing set
+
+
+def test_compile_cache_default_dir(monkeypatch):
+    import os
+
+    from singlespmv_tpu.core import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        assert compile_cache.setup() == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == os.path.join(
+            repo, ".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -153,7 +153,7 @@ def test_duplicate_positions_kept():
 
 
 def test_bfloat16_pipeline():
-    """bf16 device dtype with a row-length-aware tolerance (TPU-native dtype)."""
+    """bf16 device dtype with a row-length-aware tolerance."""
     import jax
 
     from singlespmv_tpu import formats

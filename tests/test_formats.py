@@ -14,7 +14,7 @@ from singlespmv_tpu.formats import available_formats, convert, get_format, spmv_
 from conftest import all_test_matrices, rand_x
 
 FORMATS = ["coo", "csr", "ell", "jds", "dia", "ss", "css", "csr5", "dense",
-           "bcoo", "hostlib"]
+           "bcoo", "hostlib", "bsr", "hyb"]
 MATRICES = all_test_matrices()
 
 
@@ -40,20 +40,18 @@ def test_spmv_f64_vs_oracle(fmt, name, mat, variant):
                                 variant=variant))
 
 
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("name,mat", MATRICES, ids=[n for n, _ in MATRICES])
+def test_spmv_f32_vs_oracle(fmt, name, mat):
+    """float32 values, float64 oracle, the row-length-aware f32 tolerance."""
+    _run(fmt, name, mat, Config(dtype="float32", segment_width=256))
+
+
 @pytest.mark.parametrize("fmt", ["csr", "ss", "csr5"])
 def test_spmv_f32(fmt):
     mats = dict(MATRICES)
     for name in ("10x10", "powerlaw-256", "random-128"):
         _run(fmt, name, mats[name], Config(dtype="float32", segment_width=256))
-
-
-@pytest.mark.parametrize("fmt", ["ss", "css", "csr5"])
-def test_optimized_variant_pallas_interpret(fmt):
-    """The Pallas scan path (interpret mode on CPU) must match the oracle."""
-    mats = dict(MATRICES)
-    cfg = Config(dtype="float32", segment_width=256, variant="optimized")
-    for name in ("10x10", "powerlaw-256", "unbalance-64"):
-        _run(fmt, name, mats[name], cfg)
 
 
 @pytest.mark.parametrize("width", [128, 256, 1024])

@@ -4,6 +4,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 
@@ -35,6 +36,12 @@ class TestDriver:
         assert r["MatrixFormat"] == "CRS"  # reference spelling
         assert r["nNnz"] == coo.nnz
         assert r["Verify"] == "PASS"
+        assert r["VerifyTol"] == 1e-6 and r["MaxRelErr"] <= 1e-6
+        assert r["DeviceKind"] == jax.devices()[0].device_kind
+        assert (r["Omega"], r["RowBlock"], r["LaneWidth"]) == (128, 8, 128)
+        assert r["ArgBytes"] > 0
+        if r["Architecture"] == "CPU":
+            assert "RooflinePct" not in r      # no device roofline for a host
 
     def test_from_file_and_phases(self, tmp_path):
         p = tmp_path / "m.mtx"
@@ -49,36 +56,36 @@ class TestDriver:
 
     def test_auto_replans_when_top_candidate_raises_at_convert(
             self, monkeypatch):
-        # r4 VERDICT #6: the top-ranked candidate raising at CONVERT time
-        # (slab's sampled-plan ValueError class) must fall through to the
-        # next candidate, not hard-fail the benchmark.
+        # The top-ranked candidate raising at CONVERT time (a guard's
+        # ValueError) must fall through to the next candidate, not
+        # hard-fail the benchmark — and the failure must show in the report.
         from singlespmv_tpu.formats import auto as auto_mod
 
         coo = generate("random", 128, 900, seed=6)
         orig_costs = auto_mod.estimate_costs
 
-        def rigged(coo_, cfg_, plans=None, _inner=False):
-            costs = orig_costs(coo_, cfg_, plans=plans, _inner=_inner)
-            costs["slab"] = min(costs.values()) / 10.0  # force top rank
-            if plans is not None:
-                plans.pop("slab", None)
+        def rigged(coo_, cfg_, _inner=False, consts=None):
+            costs = orig_costs(coo_, cfg_, _inner=_inner, consts=consts)
+            costs["bsr"] = min(costs.values()) / 10.0  # force top rank
             return costs
 
-        def boom(coo_, cfg_, plan=None):
+        def boom(coo_, cfg_):
             raise ValueError("synthetic convert failure")
 
         monkeypatch.setattr(auto_mod, "estimate_costs", rigged)
-        monkeypatch.setattr(auto_mod._MODULES["slab"], "convert", boom)
+        monkeypatch.setattr(auto_mod._MODULES["bsr"], "convert", boom)
         cfg = Config(format="auto", dtype="float64")
         res = run_benchmark(coo, cfg, quick=True, log=quiet)
         assert res.verify_ok
-        assert res.report["ChosenFormat"] != "SLAB"
+        assert res.report["ChosenFormat"] != "BSR"
+        assert res.auto_excluded == ("bsr:ValueError",)
+        assert res.report["AutoExcluded"] == "bsr:ValueError"
 
     def test_driver_excludes_candidate_failing_at_first_run(
             self, monkeypatch):
         # A candidate that converts fine but raises a NON-RuntimeError at
-        # its first spmv (TypeError guard class) must be excluded and the
-        # benchmark re-planned (r4 ADVICE: driver caught RuntimeError only).
+        # its first spmv (TypeError guard class) must be excluded, the
+        # benchmark re-planned, and the exclusion recorded.
         from singlespmv_tpu.formats import auto as auto_mod
 
         coo = generate("random", 128, 900, seed=7)
@@ -93,6 +100,7 @@ class TestDriver:
         res = run_benchmark(coo, cfg, quick=True, log=quiet)
         assert res.verify_ok
         assert res.report["ChosenFormat"] != bad.upper()
+        assert res.auto_excluded == (f"{bad}:TypeError",)
 
     def test_verify_catches_bad_result(self, monkeypatch):
         # A format whose spmv is wrong must be flagged, not crash.

@@ -82,21 +82,26 @@ def test_hyb_spmm_matches_columnwise_spmv():
 
 
 def test_auto_offers_hyb_on_stencil_mix():
-    """A jittered-stencil + scatter matrix must surface a hyb candidate whose
-    cost beats the pure scattered paths (the natural-suite regime).  The mix
-    must carry enough peelable work to clear hyb's two-engine fixed tax
-    (~80 µs — a 1k-row toy is correctly judged too small to split)."""
+    """A band + scatter matrix must surface a hyb candidate whose cost beats
+    the one-format scattered paths (the natural-suite regime), and that cost
+    must be the peel's dia stream + the cheapest residual format + one extra
+    pass over y (the rates are the injected test constants)."""
+    from singlespmv_tpu.core import chipconst
     from singlespmv_tpu.formats.auto import estimate_costs
 
     coo = _mixed(n=131072, seed=8)
-    costs = estimate_costs(coo, Config(dtype="float32"))
+    cfg = Config(dtype="float32")
+    costs = estimate_costs(coo, cfg)
     assert "hyb" in costs
-    scattered = [v for k, v in costs.items()
-                 if k in ("bkt", "bkt_g", "css", "slab")]
+    scattered = [v for k, v in costs.items() if k in hyb_mod._rest_modules()]
     assert costs["hyb"] < min(scattered)
-    # and the tax is real: tiny mixes must NOT pick hyb over one-engine paths
-    small = estimate_costs(_mixed(n=1024, seed=8), Config(dtype="float32"))
-    assert min(small, key=small.get) != "hyb"
+    est = hyb_mod.estimate(coo, cfg)
+    peel, _ = hyb_mod.plan_peel(coo, cfg)
+    _, rest = hyb_mod._split(coo, peel, cfg)
+    rcosts = estimate_costs(rest, cfg, _inner=True)
+    rbest = min(v for k, v in rcosts.items() if k in hyb_mod._rest_modules())
+    y_pass = 3 * coo.n_row * 4 / chipconst.constants()["hbm_bps"]
+    assert costs["hyb"] == pytest.approx(est["dia_sec"] + rbest + y_pass)
 
 
 def test_auto_withholds_hyb_on_pure_scatter():

@@ -94,7 +94,7 @@ class TestSpGEMM:
         assert c.nnz == 0
 
     def test_powerlaw_b_no_capacity_blowup(self):
-        """r4 VERDICT #10: one dense row in B must not explode the candidate
+        """One dense row in B must not explode the candidate
         rectangle (old capacity nnz_A·max_deg(B) = 100k·20k slots here)."""
         rng = np.random.default_rng(5)
         n = 100_000
@@ -164,65 +164,3 @@ class TestSpTRSV:
         t = COOMatrix.from_triplets(4, 4, i, i, vals)
         with pytest.raises(ValueError):
             analyze(t)
-
-
-class TestDF64:
-    """Double-float (2×f32) arithmetic — the TPU f64-semantics layer."""
-
-    def test_two_sum_exact(self):
-        import jax.numpy as jnp
-
-        from singlespmv_tpu.ops.df64 import two_sum
-
-        a = jnp.float32(1.0)
-        b = jnp.float32(1e-8)  # vanishes in plain f32 addition
-        s, e = two_sum(a, b)
-        assert float(s) == 1.0 and float(e) == pytest.approx(1e-8, rel=1e-6)
-
-    def test_two_prod_exact(self):
-        import jax.numpy as jnp
-
-        from singlespmv_tpu.ops.df64 import two_prod
-
-        rng = np.random.default_rng(3)
-        a = rng.standard_normal(512).astype(np.float32)
-        b = rng.standard_normal(512).astype(np.float32)
-        p, e = two_prod(jnp.asarray(a), jnp.asarray(b))
-        exact = a.astype(np.float64) * b.astype(np.float64)
-        got = np.asarray(p, np.float64) + np.asarray(e, np.float64)
-        np.testing.assert_allclose(got, exact, rtol=0, atol=0)  # bit-exact
-
-    def test_split_roundtrip(self):
-        rng = np.random.default_rng(4)
-        v = rng.standard_normal(1000) * np.exp(rng.uniform(-20, 20, 1000))
-        from singlespmv_tpu.ops.df64 import df_from_f64
-
-        hi, lo = df_from_f64(v)
-        err = np.abs((hi.astype(np.float64) + lo) - v) / np.abs(v)
-        assert err.max() < 2 ** -45
-
-    def test_df64_dot_beats_f32(self):
-        """An ill-conditioned long-row sum where plain f32 fails 1e-6."""
-        import jax.numpy as jnp
-
-        from singlespmv_tpu.ops.df64 import (df_add_sloppy, df_from_f64,
-                                             df_mul, df_renorm)
-
-        rng = np.random.default_rng(5)
-        n = 4096
-        a = rng.standard_normal(n) * 1e3
-        x = rng.standard_normal(n)
-        exact = float(np.dot(a, x))
-        f32 = float(np.dot(a.astype(np.float32), x.astype(np.float32)))
-        ah, al = map(jnp.asarray, df_from_f64(a))
-        xh, xl = map(jnp.asarray, df_from_f64(x))
-        ph, plo = df_mul(ah, al, xh, xl)
-        sh, sl = jnp.float32(0.0), jnp.float32(0.0)
-        for i in range(0, n, 512):  # blockwise to mimic kernel accumulation
-            bh, bl = jnp.sum(ph[i:i + 512]), jnp.sum(plo[i:i + 512])
-            sh, sl = df_add_sloppy(sh, sl, bh, bl)
-        sh, sl = df_renorm(sh, sl)
-        got = float(sh) + float(sl)
-        rel_df = abs(got - exact) / abs(exact)
-        rel_f32 = abs(f32 - exact) / abs(exact)
-        assert rel_df < rel_f32 / 4 and rel_df < 1e-6

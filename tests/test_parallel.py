@@ -183,105 +183,3 @@ class TestHaloSpMV:
         op_r = HaloSpMV.convert(coo, CFG, mesh, mode="rounds")
         pairwise = op_r.exchange_elems * op_r.n_collectives  # upper bound
         assert op.exchange_elems < coo.n_col * 8  # sanity: bounded by allgather
-
-
-class TestDistXch:
-    """The r5 flagship distributed path: xch v4 exchange under shard_map
-    (parallel/xchd.py) — windowed Pallas engines per shard, not the XLA
-    gather SS stream (r4 VERDICT weak #4)."""
-
-    F32 = Config(format="xch", dtype="float32")
-
-    def _check(self, coo, R, rtol=2e-5):
-        from singlespmv_tpu.parallel import DistXch
-
-        mesh = make_mesh((("row", R),))
-        op = DistXch.convert(coo, self.F32, mesh)
-        x = create_random_vector(coo.n_col, seed=5).astype(np.float32)
-        y = np.asarray(op(x))
-        ref = reference_spmv(coo, x.astype(np.float64))
-        err = np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-9)
-        assert err < rtol, err
-        return op
-
-    def test_scattered_all_mesh_sizes(self):
-        coo = powerlaw(20000, 240000, seed=4)
-        for R in (1, 2, 8):
-            self._check(coo, R)
-
-    def test_banded(self):
-        self._check(generate("band", 4096, 9, seed=1), 4)
-
-    def test_random_and_empty_shards(self):
-        # rows concentrated in the first half: upper shards are empty
-        rng = np.random.default_rng(0)
-        from singlespmv_tpu.core.types import COOMatrix
-
-        rows = rng.integers(0, 3000, 40000)
-        cols = rng.integers(0, 30000, 40000)
-        coo = COOMatrix.from_triplets(30000, 30000, rows, cols,
-                                      rng.uniform(1, 2, 40000), sort=True)
-        self._check(coo, 8)
-
-    def test_spmm(self):
-        from singlespmv_tpu.parallel import DistXch
-
-        coo = powerlaw(8192, 90000, seed=6)
-        mesh = make_mesh((("row", 4),))
-        op = DistXch.convert(coo, self.F32, mesh)
-        X = np.random.default_rng(2).uniform(
-            -1, 1, (coo.n_col, 4)).astype(np.float32)
-        Y = np.asarray(op.spmm(X))
-        dense = np.zeros((coo.n_row, coo.n_col))
-        np.add.at(dense, (coo.row, coo.col), coo.val)
-        ref = dense @ X
-        err = np.abs(Y - ref).max() / max(np.abs(ref).max(), 1e-9)
-        assert err < 2e-5, err
-
-    def test_balanced_cuts_skewed(self):
-        """nnz-balanced contiguous cuts: a matrix with all its mass in the
-        top rows must not put everything on shard 0's padded stream."""
-        from singlespmv_tpu.parallel import DistXch
-        from singlespmv_tpu.core.types import COOMatrix
-
-        rng = np.random.default_rng(1)
-        n = 65536
-        rows = np.concatenate([rng.integers(0, n // 8, 120000),
-                               rng.integers(n // 8, n, 40000)])
-        cols = rng.integers(0, n, rows.size)
-        coo = COOMatrix.from_triplets(n, n, rows, cols,
-                                      rng.uniform(1, 2, rows.size),
-                                      sum_duplicates=True)
-        mesh = make_mesh((("row", 4),))
-        op = DistXch.convert(coo, self.F32, mesh)
-        spans = np.diff(list(op.row0s) + [coo.n_row])
-        assert spans[0] < spans[-1]  # dense head got a narrower span
-        x = create_random_vector(coo.n_col, seed=5).astype(np.float32)
-        y = np.asarray(op(x))
-        ref = reference_spmv(coo, x.astype(np.float64))
-        err = np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-9)
-        assert err < 2e-5, err
-
-    def test_ring_exchange_on_banded(self):
-        """Banded footprints take the ppermute halo ring (few rounds), and
-        the result matches the all-gather path exactly."""
-        from singlespmv_tpu.parallel import DistXch
-
-        coo = generate("band", 65536, 17, seed=2)
-        mesh = make_mesh((("row", 8),))
-        op = DistXch.convert(coo, self.F32, mesh)
-        assert op.x_mode == "ring" and sum(op.n_rounds) <= 3, \
-            (op.x_mode, op.n_rounds)
-        x = create_random_vector(coo.n_col, seed=5).astype(np.float32)
-        y = np.asarray(op(x))
-        ref = reference_spmv(coo, x.astype(np.float64))
-        err = np.abs(y - ref).max() / max(np.abs(ref).max(), 1e-9)
-        assert err < 2e-5, err
-
-    def test_scattered_takes_allgather(self):
-        from singlespmv_tpu.parallel import DistXch
-
-        coo = powerlaw(20000, 240000, seed=4)
-        mesh = make_mesh((("row", 8),))
-        op = DistXch.convert(coo, self.F32, mesh)
-        assert op.x_mode == "allgather"

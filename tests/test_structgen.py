@@ -1,8 +1,7 @@
-"""Stand-in structural-fidelity tests (VERDICT r2 item 7).
+"""Stand-in structural-fidelity tests.
 
-Zero-egress environment: real SuiteSparse .mtx downloads are DNS-denied
-(documented in results/r3_standin_fidelity.md), so GFLOPS(real)/GFLOPS(synth)
-cannot be measured.  The honest substitute validated here: every stand-in in
+Zero-egress environment: real SuiteSparse .mtx downloads are impossible, so
+GFLOPS(real)/GFLOPS(synth) cannot be measured.  The honest substitute validated here: every stand-in in
 `data/structgen.py` must exhibit the *published structural class* of the matrix
 it imitates — the same classes the reference's own matrix tools report
 (/root/reference/matrix/script/counter.cpp:28-44 row-degree stats,
